@@ -1,0 +1,97 @@
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface, so it is
+compiled by ``nvcc`` alone into a shared library (seconds) instead of
+through ``torch.utils.cpp_extension`` (whose sources include PyTorch's
+headers and take minutes) and loaded with :class:`ctypes.CDLL`.
+
+The build runs at first use, never at import.  Libraries go to
+``panodepth_torch/_build/`` (listed in ``.gitignore``), named by a hash of
+the source and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("jacobi",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no FMA contraction: the kernels round like the plain PyTorch versions
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas register and shared-memory lines) of this process's builds
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every missing library among ``names``, all nvcc processes
+    started together.  Returns seconds per library built; raises with nvcc's
+    output if any build fails."""
+    todo = [n for n in names if not library_path(n).is_file()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    procs = {}
+    for name in todo:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    seconds, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.monotonic() - t0
+        BUILD_LOGS[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return _LIBS[name]

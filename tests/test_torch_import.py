@@ -1,0 +1,72 @@
+"""The port stands alone: importing it pulls in neither JAX nor the JAX
+package, and its PNG/PFM path runs without Pillow.
+
+Both checks run in a subprocess, since this test process has JAX loaded
+(tests/conftest.py imports it).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    proc = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def test_port_imports_neither_jax_nor_panodepth():
+    out = _run("""
+        import importlib, pkgutil, sys
+        sys.path.insert(0, ".")
+        import panodepth_torch
+        names = ["panodepth_torch"] + [
+            m.name for m in pkgutil.walk_packages(panodepth_torch.__path__,
+                                                  "panodepth_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "panodepth", "PIL")
+                     or m.startswith(("jax.", "panodepth.", "PIL.")))
+        print(len(names), bad)
+    """)
+    n, bad = out.split(" ", 1)
+    assert int(n) >= 12, out  # every module of the package was imported
+    assert bad.strip() == "[]", out
+
+
+def test_png_and_pfm_without_pillow():
+    out = _run("""
+        import sys
+        sys.modules["PIL"] = None  # any import of Pillow now fails
+        sys.path.insert(0, ".")
+        import numpy as np
+        from panodepth_torch import io as pio
+        import tempfile, os
+        rng = np.random.RandomState(0)
+        with tempfile.TemporaryDirectory() as d:
+            u16 = rng.randint(0, 65536, (17, 33)).astype(np.uint16)
+            pio.save_png16(os.path.join(d, "a.png"), u16)
+            assert np.array_equal(pio.read_png(os.path.join(d, "a.png")), u16)
+            back = pio.load_image01(os.path.join(d, "a.png"))
+            assert np.array_equal(back, u16.astype(np.float32) / np.float32(65535))
+            f = rng.rand(5, 7).astype(np.float32) * 5
+            with open(os.path.join(d, "b.pfm"), "wb") as fp:  # little-endian Pf
+                fp.write(b"Pf\\n7 5\\n-1.0\\n" + f.astype("<f4").tobytes())
+            assert np.array_equal(pio.load_pfm(os.path.join(d, "b.pfm")), f)
+            try:
+                pio.load_image01(os.path.join(d, "c.jpg"))
+            except ImportError as e:
+                assert "Pillow" in str(e), e
+            else:
+                raise AssertionError("JPEG read without Pillow did not raise")
+        print("ok")
+    """)
+    assert out.strip() == "ok"

@@ -1,0 +1,162 @@
+"""The port's PNG codec (stdlib zlib + numpy) and dataset naming.
+
+PNGs written by Pillow (through the JAX package's writers) and PNGs
+filtered here row by row with each of the five PNG filters decode to the
+same pixels Pillow reads; the port's own 16-bit files read back exactly
+in both packages.
+"""
+
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from panodepth import io as jio
+from panodepth.config import five_fold_leres as jax_five_fold_leres
+
+from panodepth_torch import io as tio
+from panodepth_torch.config import five_fold_leres
+
+torch.set_num_threads(1)  # xdist runs several workers on a few cores
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+
+
+def _encode(arr, filters):
+    """A PNG whose row y carries filter ``filters[y % len(filters)]``,
+    filtered byte by byte from the specification."""
+    channels = 1 if arr.ndim == 2 else arr.shape[2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    colour = {1: 0, 2: 4, 3: 2, 4: 6}[channels]
+    raw = arr.astype(">u2" if depth == 16 else np.uint8).tobytes()
+    h, w = arr.shape[:2]
+    stride = len(raw) // h
+    bpp = channels * depth // 8
+    out, prior = bytearray(), bytes(stride)
+    for y in range(h):
+        row = raw[y * stride:(y + 1) * stride]
+        kind = filters[y % len(filters)]
+        out.append(kind)
+        for i, x in enumerate(row):
+            a = row[i - bpp] if i >= bpp else 0
+            b = prior[i]
+            c = prior[i - bpp] if i >= bpp else 0
+            pred = (0, a, b, (a + b) >> 1, _paeth(a, b, c))[kind]
+            out.append((x - pred) & 0xFF)
+        prior = row
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(out)))
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("dtype,channels", [(np.uint8, 1), (np.uint16, 1),
+                                            (np.uint8, 3), (np.uint8, 4),
+                                            (np.uint16, 3), (np.uint8, 2)])
+def test_all_five_filters_decode(tmp_path, dtype, channels):
+    rng = np.random.RandomState(channels)
+    hi = 65536 if dtype == np.uint16 else 256
+    shape = (11, 9) if channels == 1 else (11, 9, channels)
+    arr = rng.randint(0, hi, shape).astype(dtype)
+    f = tmp_path / "f.png"
+    f.write_bytes(_encode(arr, (0, 1, 2, 3, 4)))
+    got = tio.read_png(str(f))
+    np.testing.assert_array_equal(got, arr)
+    assert got.dtype == dtype
+    if dtype == np.uint8 or channels == 1:  # Pillow keeps 16 bits only for gray
+        np.testing.assert_array_equal(np.asarray(Image.open(f)).astype(dtype),
+                                      arr)
+
+
+def test_pillow_written_pngs_read_like_the_jax_package(tmp_path):
+    rng = np.random.RandomState(5)
+    smooth = np.cumsum(rng.randint(0, 300, (40, 70)), axis=1).astype(np.uint16)
+    jio.save_png16(str(tmp_path / "a.png"), smooth)
+    Image.fromarray((smooth >> 8).astype(np.uint8), "L").save(tmp_path / "b.png")
+    Image.fromarray(rng.randint(0, 256, (20, 30, 3)).astype(np.uint8)).save(
+        tmp_path / "c.png", optimize=True)
+    for name in ("a.png", "b.png", "c.png"):
+        got = tio.load_image01(str(tmp_path / name))
+        want = jio.load_image01(str(tmp_path / name))
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_save_png16_reads_back_in_both_packages(tmp_path):
+    rng = np.random.RandomState(0)
+    data = rng.randint(0, 65536, (16, 32)).astype(np.uint16)
+    f = str(tmp_path / "x.png")
+    tio.save_png16(f, data)
+    np.testing.assert_array_equal(tio.read_png(f), data)
+    back = (jio.load_image01(f) * 65535.0 + 0.5).astype(np.uint16)
+    np.testing.assert_array_equal(back, data)
+    np.testing.assert_array_equal(tio.load_image01(f), jio.load_image01(f))
+
+
+def test_png_reader_refuses_what_it_does_not_take(tmp_path):
+    f = tmp_path / "p.png"
+    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(f)
+    with pytest.raises(ValueError, match="unsupported PNG"):
+        tio.read_png(str(f))
+    good = _encode(np.zeros((3, 3), np.uint8), (0,))
+    bad = bytearray(good)
+    bad[-20] ^= 0xFF  # corrupt the IDAT body
+    f.write_bytes(bytes(bad))
+    with pytest.raises(ValueError, match="CRC"):
+        tio.read_png(str(f))
+    f.write_bytes(good[:-15])  # cut inside the IDAT chunk
+    with pytest.raises(ValueError, match="truncated"):
+        tio.read_png(str(f))
+
+
+def test_pfm_and_jpeg_load_like_the_jax_package(tmp_path):
+    rng = np.random.RandomState(1)
+    img = rng.rand(8, 12).astype(np.float32) * 5
+    f = str(tmp_path / "x.pfm")
+    jio.save_pfm(f, img)
+    np.testing.assert_array_equal(tio.load_pfm(f), img)
+    for mono360 in (False, True):
+        np.testing.assert_array_equal(tio.load_image01(f, mono360),
+                                      jio.load_image01(f, mono360))
+    jpg = str(tmp_path / "y.jpg")
+    jio.save_jpg(jpg, rng.rand(16, 24))
+    np.testing.assert_array_equal(tio.load_image01(jpg), jio.load_image01(jpg))
+
+
+def test_filename_conventions_match_jax():
+    for folder in ("out_slicenet/", "unifuse_res/", "hohonet/", "plain/"):
+        assert tio.baseline_filename("b/", "x", folder) == \
+            jio.baseline_filename("b/", "x", folder)
+    for raw, ds in (("area_rgb_1", "matterport"), ("scene_rgb", "replica"),
+                    ("a_color", "suncg"), ("area_rgb_1", "stanford2d3d")):
+        assert tio.gt_filename("g/", raw, ds) == jio.gt_filename("g/", raw, ds)
+    assert tio.pmap_filenames("v/", "img", five_fold_leres(), ".png") == \
+        jio.pmap_filenames("v/", "img", jax_five_fold_leres(), ".png")
+    assert tio.raw_name("a/b/c.d.png") == jio.raw_name("a/b/c.d.png")
+    files = [f"f{i}_{'x' if i % 3 else 'y'}.png" for i in range(12)]
+    for kw in (dict(include=["x"]), dict(exclude=["y"], limit=3),
+               dict(shard="1/4"), dict(include=["f1"], shard="0/2", limit=2)):
+        assert tio.filter_files(files, **kw) == jio.filter_files(files, **kw)
+    with pytest.raises(ValueError, match="shard"):
+        tio.filter_files(files, shard="4/4")
+
+
+def test_list_images(tmp_path):
+    for name in ("b.png", "a.jpg", "c.txt", "d.PFM"):
+        (tmp_path / name).write_bytes(b"")
+    assert tio.list_images(str(tmp_path)) == jio.list_images(str(tmp_path))
+    assert [os.path.basename(p) for p in tio.list_images(str(tmp_path))] == \
+        ["a.jpg", "b.png", "d.PFM"]

@@ -19,6 +19,24 @@ Phases, each printing its elapsed seconds:
              against the scene's ground truth.
 5. cli     — ``python -m panodepth_torch 0`` (``cli.main``) on two such
              scenes written as files, then again to check resume.
+6. groupnorm — the GroupNorm kernel against its plain version on the 29
+             inputs FastPanoNet's norms get at a 256x512 input (the zoo
+             weights, a synthetic panorama), as bf16 -> f32 as the path
+             runs them and as f32 -> f32, bf16 -> bf16, with and without
+             ReLU; a near-constant group and an odd shape; then the 29-call
+             set timed: kernel, plain version, ``F.group_norm``.
+7. models  — both zoo nets loaded from ``zoo/`` (FastPanoNet 1x256x512,
+             NFPerspectiveNet 15x256x256): norm launches counted, outputs
+             finite in 0~1, the baseline of the kernel route against the
+             plain route.
+8. e2e     — the slice's main path, ``build_batched_e2e`` at full width
+             (5fold_leres, 2048, views 256, baseline CNN 512) on two
+             synthetic panoramas: launches of both kernels counted, the u16
+             output against the plain routes', warm time per panorama
+             (models, fuse, total) and the device's idle share.
+9. cli-e2e — ``cli.main`` in model mode on two RGB panoramas written as
+             8-bit RGB PNGs, with ``--baseline-ckpt`` and with baseline
+             files, then again to check resume.
 
 It prints a JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -32,10 +50,12 @@ import io as stdio
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -312,34 +332,16 @@ def phase_merge(cfg, scene):
 def _profile_merge(run, warm_ms):
     """Device time by kernel over one warm merge (torch.profiler), and the
     device's busy share of the unprofiled warm time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-
-    from torch.autograd import DeviceType
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # the kernels themselves (device-side events); the CPU-side operators
-    # that launched them carry the same time and are left out of the sum
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=device_us, reverse=True)
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    busy_ms, events = _device_profile(run)
     if busy_ms <= 0:
         print("merge profile: the profiler saw no device time (not measured)")
         return
     print(f"merge profile: device busy {busy_ms!r} ms of the warm "
           f"{warm_ms!r} ms (idle share {1 - busy_ms / warm_ms!r}); "
           f"top device time by name (ms, calls):")
-    for e in events[:12]:
-        if device_us(e) > 0:
-            print(f"  {device_us(e) / 1e3:9.4f} ms  {e.count:6d}  {e.key[:90]}")
+    for ms, count, name in events[:12]:
+        if ms > 0:
+            print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
 
 
 def phase_cli(cfg, scenes, merged0):
@@ -408,12 +410,478 @@ def phase_cli(cfg, scenes, merged0):
             raise AssertionError("resume did not skip the finished panoramas")
 
 
+# --- the e2e slice: GroupNorm kernel, the zoo nets, the on-device graph ---
+
+ZOO = os.path.join(ROOT, "zoo")
+PERSP_CKPT = os.path.join(ZOO, "perspective_final.params.npz")
+BASE_CKPT = os.path.join(ZOO, "fastpano_final.params.npz")
+GN_CALLS = 29          # GroupNorms of FastPanoNet (zoo/fastpano.config.json)
+# the GroupNorm kernel against its plain version: f32 output within this
+# many f32 ulps of the output's largest magnitude (at least 1) -- the two sum
+# in different orders and rsqrtf is not correctly rounded; bf16 output
+# within 1 bf16 step at each value's magnitude beyond that f32 bound (the
+# two round f32 values that differ by it); a near-constant group (var ~ 0,
+# so rsqrt(var + eps)
+# ~ 1000 amplifies the sums' rounding) within GN_FLAT_ABS
+GN_F32_ULPS = 16
+GN_FLAT_ABS = 2.0 ** -10
+# the baseline CNN through the kernel against the plain route, in 0~1: both
+# are the same bf16 net, differing only by the norms' f32 sum order
+BASE_ROUTE_ABS = 4e-3
+# u16 output of the e2e graph through the kernels against the plain
+# routes: two bf16 runs of one graph that differ by rounding only, which
+# the cubic registration amplifies; set from the port-vs-JAX bf16
+# difference at tests/test_torch_e2e.py's two-view layout (max 111, mean
+# 17.4) before the first run on the card
+E2E_ROUTE_MAX_U16 = 256
+E2E_ROUTE_MEAN_U16 = 24.0
+
+
+def make_rgb(seed, width):
+    """u8 RGB panorama (width/2, width, 3): smooth colour fields with
+    texture and noise, made from ``seed``."""
+    rng = np.random.RandomState(seed)
+    ph = rng.uniform(0, 2 * math.pi, 6)
+
+    def colour(azi, zen):
+        r = (0.5 + 0.25 * np.sin(2 * azi + ph[0]) * np.sin(zen)
+             + 0.15 * np.cos(3 * zen + ph[1]))
+        g = (0.5 + 0.25 * np.cos(azi + ph[2]) * np.sin(2 * zen)
+             + 0.1 * np.sin(5 * azi + ph[3]))
+        b = (0.45 + 0.3 * np.cos(zen + ph[4])
+             + 0.05 * np.sin(9 * azi + 7 * zen + ph[5]))
+        return np.stack([r, g, b], -1)
+
+    img = _equirect(width, width // 2, colour)
+    img = img + rng.normal(0, 0.02, img.shape)
+    return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+
+def write_png_rgb8(path, rgb):
+    """An 8-bit RGB PNG (filter None on every row); the package has no RGB
+    writer of its own."""
+    h, w, _ = rgb.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], 1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fp:
+        fp.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                 + chunk(b"IEND", b""))
+
+
+def _bf16_steps_off(got, want, f32_tol):
+    """Largest |got - want| of two bf16 tensors in units of one bf16 step
+    at ``want``'s magnitude, after allowing ``f32_tol`` (near 0 the bf16
+    steps are finer than the f32 statistics' own error)."""
+    w = want.float().abs()
+    step = torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w)) - 7),
+                       torch.zeros_like(w))
+    off = ((got.float() - want.float()).abs() - f32_tol).clamp_min(0)
+    return float((off / torch.clamp_min(step, 2.0 ** -133)).max())
+
+
+def _device_profile(run):
+    """(device busy ms, kernel events sorted by device time) over ``run()``
+    under torch.profiler; busy 0.0 when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the kernels themselves (device-side events); the CPU-side operators
+    # that launched them carry the same time and are left out of the sum
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=device_us, reverse=True)
+    return sum(device_us(e) for e in events) / 1e3, [
+        (device_us(e) / 1e3, e.count, e.key) for e in events]
+
+
+def _pano_feed(rgb_u8, dev):
+    """A u8 panorama as the CLI decodes it (k / 255 in f32), on the card."""
+    return torch.tensor(rgb_u8.astype(np.float32) / np.float32(255.0),
+                        device=dev)
+
+
+def phase_groupnorm(base, rgb_u8):
+    """The kernel against its plain version on the inputs of FastPanoNet's
+    29 norms at a 256x512 input, then the 29-call set timed."""
+    import torch.nn.functional as F
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import norm as pnorm
+    from panodepth_torch.ops.resize import resize_bilinear_nhwc
+
+    dev = torch.device("cuda")
+    feed = resize_bilinear_nhwc(_pano_feed(rgb_u8, dev)[None], (256, 512))
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0].contiguous().clone())))
+        for m in base.modules() if isinstance(m, pnorm.GroupNorm)]
+    pnorm.set_route(base, "torch")
+    base(feed)
+    pnorm.set_route(base, "auto")
+    for h in hooks:
+        h.remove()
+    if len(calls) != GN_CALLS:
+        raise AssertionError(f"FastPanoNet ran {len(calls)} norms, "
+                             f"expected {GN_CALLS}")
+    shapes = sorted({(int(x[0, 0].numel()), x.shape[1], m.num_groups)
+                     for m, x in calls}, reverse=True)
+    print(f"groupnorm: {len(calls)} calls per forward over {len(shapes)} "
+          f"shapes (HW, C, G): {shapes}; inputs {calls[0][1].dtype}")
+
+    def hold(label, x, scale, bias, groups, relu, out_dtype, flat=False):
+        got = kg.cuda_group_norm(x, scale, bias, groups, 1e-6, relu, out_dtype)
+        want = kg.group_norm_plain(x, scale, bias, groups, 1e-6, relu,
+                                   out_dtype)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+        if flat:
+            ok, why = err <= GN_FLAT_ABS, f"max abs {err!r} <= {GN_FLAT_ABS}"
+        else:
+            tol = GN_F32_ULPS * 2.0 ** -23 * max(
+                1.0, float(want.float().abs().max()))
+            if out_dtype == torch.bfloat16:
+                u = _bf16_steps_off(got, want, tol)
+                ok, why = u <= 1, f"{u!r} bf16 steps <= 1"
+            else:
+                ok, why = err <= tol, (f"max abs {err!r} <= {tol!r} ({GN_F32_ULPS}"
+                                       f" f32 ulp of the scale)")
+        if not (ok and finite):
+            raise AssertionError(f"groupnorm kernel disagrees with the plain "
+                                 f"version ({label}): {why} is "
+                                 f"{ok}, finite {finite}")
+        return err
+
+    max_abs = 0.0
+    seen = set()
+    for m, x in calls:
+        key = (int(x[0, 0].numel()), x.shape[1], m.num_groups)
+        # the path's own call: bf16 in, the module's output type and ReLU
+        err = hold(f"{key} path", x, m.scale, m.bias, m.num_groups,
+                   m.fuse_relu, m.dtype)
+        max_abs = max(max_abs, err)
+        if key in seen:
+            continue
+        seen.add(key)
+        line = []
+        for xin in (x, x.float()):
+            for relu in (False, True):
+                for od in (torch.float32, torch.bfloat16):
+                    e = hold(f"{key} {xin.dtype}->{od} relu={relu}", xin,
+                             m.scale, m.bias, m.num_groups, relu, od)
+                    line.append(f"{e:.2e}")
+        print(f"groupnorm {key}: max abs err vs plain (bf16|f32 in x "
+              f"relu off|on x f32|bf16 out): {' '.join(line)}")
+    rng = np.random.RandomState(SEED)
+    odd = torch.tensor(rng.normal(0.3, 1.7, (3, 20, 7, 9)).astype(np.float32),
+                       device=dev)
+    sc = torch.tensor(rng.uniform(0.5, 2, 20).astype(np.float32), device=dev)
+    bi = torch.tensor(rng.uniform(-1, 1, 20).astype(np.float32), device=dev)
+    for od in (torch.float32, torch.bfloat16):
+        for relu in (False, True):
+            hold(f"odd (3, 20, 7, 9) G4 -> {od}", odd.to(torch.bfloat16), sc,
+                 bi, 4, relu, od)
+    flat = odd.clone()
+    # group 0 of every image holds one value, so E[x^2] - E[x]^2 rounds to
+    # about 0 either side and the clamp at 0 keeps rsqrt finite; group 1
+    # of image 0 holds one large value (its x - mean is exactly 0)
+    flat[:, :5] = 0.1
+    flat[0, 5:10] = 1000.0
+    e = hold("near-constant groups", flat, sc, bi, 4, False, torch.float32,
+             flat=True)
+    print(f"groupnorm: odd shape and near-constant groups pass "
+          f"(near-constant max abs err {e!r}, no NaN)")
+
+    xs32 = [x.float() for _, x in calls]
+
+    def kernel_set():
+        for m, x in calls:
+            kg.cuda_group_norm(x, m.scale, m.bias, m.num_groups, 1e-6,
+                               m.fuse_relu, m.dtype)
+
+    def plain_set():
+        for m, x in calls:
+            kg.group_norm_plain(x, m.scale, m.bias, m.num_groups, 1e-6,
+                                m.fuse_relu, m.dtype)
+
+    def library_set():
+        for (m, _), x in zip(calls, xs32):
+            F.group_norm(x, m.num_groups, m.scale, m.bias, 1e-6)
+
+    k_ms = _median_ms(kernel_set, runs=7, warmup=2)
+    p_ms = _median_ms(plain_set, runs=5, warmup=1)
+    l_ms = _median_ms(library_set, runs=7, warmup=2)
+    busy_ms, events = _device_profile(kernel_set)
+    elements = sum(x.numel() for _, x in calls)
+    nbytes = sum(x.numel() * (x.element_size() + torch.empty(
+        (), dtype=m.dtype).element_size()) for m, x in calls)
+    ops = 8 * elements  # 3 for the sums, 5 to normalise (ReLU not counted)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_FLOPS * 1e3
+    summary = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                   device_ms=busy_ms, bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   max_abs_err=max_abs, elements=elements, bytes=nbytes,
+                   calls=len(calls))
+    print(f"groupnorm per forward ({len(calls)} calls, {elements} elements, "
+          f"{nbytes} bytes): kernel {k_ms!r} ms (device busy {busy_ms!r} ms "
+          f"under the profiler), plain {p_ms!r} ms, F.group_norm {l_ms!r} ms "
+          f"(CUDA events, median of 7 / 5 / 7), bound {summary['bound_ms']!r}"
+          f" ms ({summary['bound_by']})")
+    for ms, count, name in events[:4]:
+        print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
+    return summary
+
+
+def phase_models(persp, base, rgb_u8):
+    """Both zoo nets on a synthetic panorama: norm launches, outputs in
+    0~1, the baseline of the kernel route against the plain route."""
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import norm as pnorm
+    from panodepth_torch.models.perspective import predict_depth01
+    from panodepth_torch.ops.projection import extract_group, view_groups
+    from panodepth_torch.ops.resize import resize_bilinear_nhwc
+
+    dev = torch.device("cuda")
+    rgb = _pano_feed(rgb_u8, dev)[None]
+    feed = resize_bilinear_nhwc(rgb, (256, 512))
+    per_call = kg.launches_per_call()
+    kg.LAUNCHES = 0
+    out = pnorm.set_route(base, "auto")(feed)
+    torch.cuda.synchronize()
+    launches = kg.LAUNCHES
+    print(f"models: FastPanoNet {tuple(feed.shape)} -> {tuple(out.shape)}, "
+          f"groupnorm launches {launches} (expected {GN_CALLS} x {per_call})")
+    if launches != GN_CALLS * per_call:
+        raise AssertionError(f"FastPanoNet launched the groupnorm kernel "
+                             f"{launches} times")
+    if out.shape != (1, 256, 512) or not bool(
+            ((out >= 0) & (out <= 1)).all()):
+        raise AssertionError("baseline CNN output is not finite 0~1 "
+                             "of shape (1, 256, 512)")
+    plain = pnorm.set_route(base, "torch")(feed)
+    pnorm.set_route(base, "auto")
+    diff = (out - plain).abs()
+    print(f"models: baseline, kernel route vs plain route: max abs "
+          f"{float(diff.max())!r}, mean {float(diff.mean())!r} "
+          f"(bound {BASE_ROUTE_ABS})")
+    if float(diff.max()) > BASE_ROUTE_ABS:
+        raise AssertionError("baseline CNN: kernel route differs from the "
+                             "plain route")
+
+    layout = MergeConfig(layout_name="5fold_leres").layout
+    (shape, idxs), = view_groups(layout, 256).items()
+    views = extract_group(rgb, layout.fovs[idxs], shape)[0]
+    views = resize_bilinear_nhwc(views, (256, 256))
+    kg.LAUNCHES = 0
+    depth = predict_depth01(persp, views)
+    torch.cuda.synchronize()
+    print(f"models: NFPerspectiveNet {tuple(views.shape)} (views {shape}) -> "
+          f"{tuple(depth.shape)}, range [{float(depth.min())!r}, "
+          f"{float(depth.max())!r}], groupnorm launches {kg.LAUNCHES}")
+    if depth.shape != (15, 256, 256) or kg.LAUNCHES or not bool(
+            ((depth >= 0) & (depth <= 1)).all()):
+        raise AssertionError("perspective CNN output is not finite 0~1 of "
+                             "shape (15, 256, 256), or it ran a norm")
+    base_ms = _median_ms(lambda: base(feed), runs=5, warmup=1)
+    persp_ms = _median_ms(lambda: predict_depth01(persp, views), runs=5,
+                          warmup=1)
+    print(f"models: FastPanoNet 1x256x512 {base_ms!r} ms, NFPerspectiveNet "
+          f"15x256x256 with the 99th-percentile map {persp_ms!r} ms "
+          f"(CUDA events, median of 5)")
+    return dict(base_ms=base_ms, persp_ms=persp_ms)
+
+
+def phase_e2e(persp, base, rgbs_u8):
+    """The main path: the batched e2e graph at full width on two panoramas,
+    through both kernels, against the plain routes, timed and profiled."""
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.e2e import build_batched_e2e
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    dev = torch.device("cuda")
+    cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
+    b = len(rgbs_u8)
+    rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
+    full, models_stage, fuse_stage = build_batched_e2e(
+        persp, cfg, view_width=256, base_model=base, base_w=512)
+    want_j = b * sum(kj.launches_for(it) for it in cfg.schedule)
+    want_g = GN_CALLS * kg.launches_per_call()  # one forward of the batch
+
+    kj.LAUNCHES = kg.LAUNCHES = 0
+    out, bases = full(rgbs)
+    torch.cuda.synchronize()
+    launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+    print(f"e2e: {b} panoramas {tuple(rgbs.shape)} -> {tuple(out.shape)} "
+          f"{out.dtype}; launches {launches} (expected jacobi {want_j}, "
+          f"group_norm {want_g})")
+    if launches != dict(jacobi=want_j, group_norm=want_g):
+        raise AssertionError(f"e2e launches {launches}")
+    if out.shape != (b, 1024, 2048) or out.dtype != torch.uint16:
+        raise AssertionError(f"bad e2e output {tuple(out.shape)} {out.dtype}")
+    if not bool(((bases >= 0) & (bases <= 1)).all()):
+        raise AssertionError("e2e baselines are not finite 0~1")
+
+    plain_full, _, _ = build_batched_e2e(
+        persp, cfg, view_width=256, base_model=base, base_w=512,
+        jacobi="torch", groupnorm="torch")
+    plain, _ = plain_full(rgbs)
+    torch.cuda.synchronize()
+    diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
+    dmax, dmean = int(diff.max()), float(diff.float().mean())
+    print(f"e2e: kernel routes vs plain routes, u16 max diff {dmax}, mean "
+          f"{dmean!r} (bounds {E2E_ROUTE_MAX_U16}, {E2E_ROUTE_MEAN_U16})")
+    if dmax > E2E_ROUTE_MAX_U16 or dmean > E2E_ROUTE_MEAN_U16:
+        raise AssertionError("e2e u16 output of the kernel routes differs "
+                             "from the plain routes'")
+
+    # the CLI runs one panorama per call: the same graph at batch 1 (cuDNN
+    # may pick other algorithms for another batch, so bf16 rounds apart)
+    single, _ = full(rgbs[:1])
+    torch.cuda.synchronize()
+    d1 = (out[0].to(torch.int32) - single[0].to(torch.int32)).abs()
+    print(f"e2e: batch 2 vs batch 1, first panorama: u16 max diff "
+          f"{int(d1.max())}, mean {float(d1.float().mean())!r}")
+
+    models_ms, fuse_ms, total_ms = [], [], []
+    for _ in range(6):  # one warm-up, then five timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bs, pm = models_stage(rgbs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fuse_stage(bs, pm)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        models_ms.append((t1 - t0) * 1e3 / b)
+        fuse_ms.append((t2 - t1) * 1e3 / b)
+        total_ms.append((t2 - t0) * 1e3 / b)
+    warm = {k: float(np.median(v[1:])) for k, v in
+            (("models", models_ms), ("fuse", fuse_ms), ("total", total_ms))}
+    print(f"e2e warm time per panorama (batch {b}, host clock to "
+          f"synchronize, median of 5): models {warm['models']!r} ms, fuse "
+          f"{warm['fuse']!r} ms, total {warm['total']!r} ms; totals "
+          f"{total_ms[1:]!r}")
+    bs, pm = models_stage(rgbs)
+    stage_busy = dict(models=_device_profile(lambda: models_stage(rgbs))[0],
+                      fuse=_device_profile(lambda: fuse_stage(bs, pm))[0])
+    print(f"e2e device busy per panorama by stage (torch.profiler): models "
+          f"{stage_busy['models'] / b!r} ms of the warm {warm['models']!r} "
+          f"ms, fuse {stage_busy['fuse'] / b!r} ms of the warm "
+          f"{warm['fuse']!r} ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full(rgbs)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, events = _device_profile(lambda: full(rgbs))
+    if busy_ms > 0:
+        print(f"e2e profile of one {b}-panorama call: device busy {busy_ms!r}"
+              f" ms of the unprofiled {call_ms!r} ms (idle share "
+              f"{1 - busy_ms / call_ms!r}); top device time by name "
+              f"(ms, calls):")
+        for ms, count, name in events[:14]:
+            print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
+    else:
+        print("e2e profile: the profiler saw no device time (not measured)")
+    return dict(single0=single[0].cpu().numpy(), bases=bases.cpu().numpy(),
+                launches=launches, warm=warm, busy_ms=busy_ms,
+                stage_busy_ms=stage_busy,
+                call_ms=call_ms, route_diff=(dmax, dmean))
+
+
+def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
+    """``cli.main`` in model mode on RGB PNGs: the baseline CNN form and the
+    baseline-file form, then resume."""
+    from panodepth_torch import MergeConfig, cli, io as pio
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    names = [f"pano_{i:04d}" for i in range(len(rgbs_u8))]
+    # the CLI's defaults: 5fold_leres at 2048
+    per_pano = sum(kj.launches_for(it) for it in MergeConfig().schedule)
+    gn_per_forward = GN_CALLS * kg.launches_per_call()
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_e2e_") as root:
+        d = {k: os.path.join(root, k) for k in
+             ("rgb", "gt", "baseline", "result_ckpt", "result_hohonet")}
+        for path in d.values():
+            os.makedirs(path)
+        for name, rgb in zip(names, rgbs_u8):
+            write_png_rgb8(os.path.join(d["rgb"], name + ".png"), rgb)
+        pio.save_png16(os.path.join(d["gt"], names[0] + ".png"), gt_u16)
+        for name, base in zip(names, e2e["bases"]):
+            pio.save_png16(os.path.join(d["baseline"], name + ".depth.png"),
+                           pio.to_uint16(base))
+        head = ["0", d["rgb"], d["gt"], d["baseline"]]
+        ckpt = ["--persp-ckpt", PERSP_CKPT]
+        forms = (("baseline CNN", d["result_ckpt"],
+                  ckpt + ["--baseline-ckpt", BASE_CKPT], len(names)),
+                 ("baseline files", d["result_hohonet"], ckpt, 0))
+        for label, result, extra, forwards in forms:
+            kj.LAUNCHES = kg.LAUNCHES = 0
+            if cli.main(head + [result] + extra) != 0:
+                raise AssertionError("cli.main returned non-zero")
+            launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+            print(f"cli-e2e ({label}): launches {launches} for "
+                  f"{len(names)} panoramas")
+            if launches != dict(jacobi=len(names) * per_pano,
+                                group_norm=forwards * gn_per_forward):
+                raise AssertionError(f"cli-e2e ({label}) launches "
+                                     f"{launches}")
+            want = [n + ".png" for n in names] + [names[0] + ".aligned.txt"]
+            missing = [f for f in want
+                       if not os.path.isfile(os.path.join(result, f))]
+            if missing:
+                raise AssertionError(f"cli-e2e ({label}) did not write "
+                                     f"{missing}")
+            got = pio.read_png(os.path.join(result, names[0] + ".png"))
+            if got.shape != (1024, 2048) or got.dtype != np.uint16:
+                raise AssertionError(f"cli-e2e output {got.shape} {got.dtype}")
+            if label == "baseline CNN":
+                diff = np.abs(got.astype(np.int32)
+                              - e2e["single0"].astype(np.int32))
+                print(f"cli-e2e: first panorama vs the in-memory graph at "
+                      f"batch 1: u16 max diff {int(diff.max())}, mean "
+                      f"{float(diff.mean())!r}")
+                if (int(diff.max()) > E2E_ROUTE_MAX_U16
+                        or float(diff.mean()) > E2E_ROUTE_MEAN_U16):
+                    raise AssertionError("cli-e2e output differs from the "
+                                         "in-memory graph")
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            cli.main(head + [d["result_ckpt"]] + forms[0][2])
+        skips = log.getvalue().count("skip!")
+        print(f"cli-e2e resume: {skips} skip! lines, launches jacobi "
+              f"{kj.LAUNCHES}, group_norm {kg.LAUNCHES}")
+        if skips != len(names) or kj.LAUNCHES or kg.LAUNCHES:
+            raise AssertionError("model-mode resume did not skip the "
+                                 "finished panoramas")
+
+
 def main():
     t_start = time.monotonic()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs a CUDA card")
     from panodepth_torch import MergeConfig
+    from panodepth_torch.e2e import load_model_checkpoint
 
     cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
     with Phase("device"):
@@ -424,18 +892,42 @@ def main():
         jac = phase_kernel(cfg)
     with Phase("merge"):
         scenes = [make_scene(cfg, SEED + i) for i in range(2)]
-        merged0, launches, warm_ms = phase_merge(cfg, scenes[0])
+        merged0, merge_launches, warm_ms = phase_merge(cfg, scenes[0])
     with Phase("cli"):
         phase_cli(cfg, scenes, merged0)
+    with Phase("groupnorm"):
+        persp, _ = load_model_checkpoint(PERSP_CKPT)
+        base, _ = load_model_checkpoint(BASE_CKPT)
+        rgbs = [make_rgb(SEED + i, 2048) for i in range(2)]
+        gn = phase_groupnorm(base, rgbs[0])
+    with Phase("models"):
+        models = phase_models(persp, base, rgbs[0])
+    with Phase("e2e"):
+        e2e = phase_e2e(persp, base, rgbs)
+    with Phase("cli-e2e"):
+        phase_cli_e2e(rgbs, scenes[0]["gt"], e2e)
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
         replaces="panodepth/kernels/jacobi.py:98",
-        launches=launches, max_abs_err=jac["max_abs_err"],
+        launches=e2e["launches"]["jacobi"], max_abs_err=jac["max_abs_err"],
         ms=jac["ms"], kernel_ms=jac["ms"], plain_ms=jac["plain_ms"],
         bound_ms=jac["bound_ms"], bound_by=jac["bound_by"], library_ms=None,
-        levels=jac["levels"])]
-    print(f"merge warm ms per panorama: {warm_ms!r}; card: {smi}")
+        launches_by_path=dict(merge=merge_launches,
+                              e2e=e2e["launches"]["jacobi"]),
+        levels=jac["levels"]), dict(
+        name="group_norm", route="cuda",
+        source="panodepth_torch/csrc/groupnorm.cu",
+        replaces="panodepth/kernels/groupnorm.py:128",
+        launches=e2e["launches"]["group_norm"], max_abs_err=gn["max_abs_err"],
+        ms=gn["ms"], plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"],
+        bound_by=gn["bound_by"], library_ms=gn["library_ms"],
+        device_ms=gn["device_ms"], calls_per_forward=gn["calls"],
+        launches_by_path=dict(e2e=e2e["launches"]["group_norm"]))]
+    print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
+          f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
+          f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
+          f"card: {smi}")
     print(f"chip_smoke wall time: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

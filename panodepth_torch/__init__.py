@@ -1,11 +1,14 @@
-"""panodepth_torch — the panodepth merge on PyTorch and CUDA.
+"""panodepth_torch — panodepth on PyTorch and CUDA.
 
 A port of the JAX package ``panodepth`` (which stays the reference) to
 PyTorch, with every TPU kernel on its path rewritten by hand for NVIDIA
 Hopper.  This package covers the file-mode merge, the reference's stage C
 (``MergeDepthMaps``, Depth.cpp:754-930): per-view cubic registration by
 normal equations, multiresolution Laplacian fusion whose Jacobi relaxation
-runs as a CUDA kernel (``csrc/jacobi.cu``), u16 output and scoring.
+runs as a CUDA kernel (``csrc/jacobi.cu``), u16 output and scoring; and the
+on-device e2e graph (``e2e``): RGB panorama -> the baseline CNN, whose
+GroupNorms run as a CUDA kernel (``csrc/groupnorm.cu``), and the perspective
+CNN on the extracted views -> the merge.
 
 It imports neither ``jax`` nor anything of ``panodepth``.
 """

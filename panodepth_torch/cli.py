@@ -7,11 +7,18 @@ Reference usage (README.md:50, Main.cpp:692-900)::
 Here::
 
     python -m panodepth_torch 0 rgb/ gt/ baseline/ result/ --no-extract [options]
+    python -m panodepth_torch 0 rgb/ gt/ baseline/ result/ \\
+        --persp-ckpt zoo/perspective_final.params.npz \\
+        [--baseline-ckpt zoo/fastpano_final.params.npz]
 
-Command ``0`` runs the CreateDepthPanoramas batch's merge (stage C): per
-panorama, registration, fusion and scoring of the perspective depth maps
-found in ``--views-folder``.  Counterpart of ``panodepth/cli.py``'s file
-mode; what is not ported yet is refused, never ignored.
+Command ``0`` runs the CreateDepthPanoramas batch.  Without
+``--persp-ckpt`` (file mode) it merges the perspective depth maps found in
+``--views-folder`` per panorama (stage C).  With it (model mode) it runs
+the on-device e2e graph on the RGB panoramas: the perspective CNN on the
+extracted views and, with ``--baseline-ckpt``, the baseline CNN (else the
+baseline files of the ``baseline`` folder), then registration and fusion.
+Counterpart of ``panodepth/cli.py``; what is not ported yet is refused,
+never ignored.
 """
 
 from __future__ import annotations
@@ -23,15 +30,21 @@ from .kernels.jacobi import JACOBI_KINDS
 
 # flags of the JAX CLI that this package does not run yet: parsed, so that
 # passing one gets a clear refusal instead of being taken for something else
-_MODEL_MODE_FLAGS = ("persp_ckpt", "baseline_ckpt", "view_width", "latency",
-                     "latency_halo", "extract_dtype", "infer_norm",
-                     "base_width", "persp_int8", "p99")
+_NOT_PORTED = {
+    "latency": "--latency (the view-parallel single-request graph)",
+    "latency_halo": "--latency-halo (the view-parallel single-request graph)",
+    "persp_int8": "--persp-int8 (the int8 perspective graph, GN checkpoints)",
+    "stream": "--stream (u8/u16 transfers to the device)",
+}
+# flags that only the model mode takes
+_MODEL_MODE = ("baseline_ckpt", "view_width", "base_width", "infer_norm",
+               "extract_dtype", "p99")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="panodepth_torch",
-        description="High-resolution panorama depth merge on PyTorch/CUDA",
+        description="High-resolution panorama depth on PyTorch/CUDA",
     )
     p.add_argument("cmd", choices=["0"], help="0 = CreateDepthPanoramas")
     p.add_argument("rgb_folder")
@@ -46,8 +59,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["matterport", "stanford2d3d", "suncg", "replica"])
     p.add_argument("--pmap-ext", default=".jpg")
     p.add_argument("--no-extract", action="store_true",
-                   help="skip stage-A RGB view extraction (required: stage A "
-                        "is not ported yet)")
+                   help="file mode: skip stage-A RGB view extraction "
+                        "(required there: stage-A file mode is not ported "
+                        "yet)")
     p.add_argument("--jacobi", default="auto", choices=JACOBI_KINDS,
                    help="auto = the CUDA kernel on cuda, the plain PyTorch "
                         "version on cpu; kernel = always the CUDA kernel; "
@@ -64,30 +78,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard", default=None, metavar="I/N",
                    help="process the round-robin slice items[I::N] of the "
                         "(filtered) list; resume still applies per item")
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="model mode: panoramas per call (the file-mode "
+                        "batched merge is not ported yet)")
+    p.add_argument("--persp-ckpt", default=None,
+                   help="model mode: the perspective CNN's checkpoint "
+                        "(*.params.npz beside its <model>.config.json)")
+    p.add_argument("--baseline-ckpt", default=None,
+                   help="model mode: make the baseline with this CNN "
+                        "instead of reading baseline files")
+    p.add_argument("--view-width", type=int, default=None,
+                   help="model mode: perspective view width (default: the "
+                        "checkpoint's training view_size)")
+    p.add_argument("--base-width", type=int, default=None,
+                   help="model mode: run the baseline CNN at this width "
+                        "instead of its training pano_width")
+    p.add_argument("--infer-norm", default=None,
+                   choices=["auto", "f32", "bf16"],
+                   help="model mode: GroupNorm output type; auto = f32")
+    p.add_argument("--extract-dtype", default=None,
+                   choices=["auto", "packed", "packed16", "pair16",
+                            "pair16d", "bf16", "f32"],
+                   help="model mode: view-extraction table; auto = f32 "
+                        "(the packed tables are TPU-only, not ported)")
+    p.add_argument("--p99", default=None, choices=["sort", "topk", "approx"],
+                   help="model mode: the perspective net's 99th percentile; "
+                        "only the exact sort is ported")
     late = p.add_argument_group("not ported yet (refused)")
-    late.add_argument("--batch-size", type=int, default=1)
-    late.add_argument("--stream", default=None, choices=["auto", "on", "off"])
     late.add_argument("--profile", action="store_true")
-    for name in _MODEL_MODE_FLAGS:  # with or without a value, as in JAX
+    for name in _NOT_PORTED:  # with or without a value, as in JAX
         late.add_argument("--" + name.replace("_", "-"), nargs="?",
                           const=True, default=None)
     return p
 
 
 def _refusal(args) -> str | None:
-    if not args.no_extract:
-        return ("stage-A view extraction is not ported yet: pass "
-                "--no-extract and provide the depth views in --views-folder")
-    for name in _MODEL_MODE_FLAGS:
+    for name, what in _NOT_PORTED.items():
         if getattr(args, name) is not None:
-            return (f"--{name.replace('_', '-')} belongs to the on-device "
-                    f"model mode, which is not ported yet")
-    if args.batch_size != 1:
-        return "--batch-size > 1 (the batched merge) is not ported yet"
-    if args.stream is not None:
-        return "--stream (the streamed batched merge) is not ported yet"
+            return f"{what} is not ported yet"
     if args.profile:
-        return "--profile (the registration/fusion split) is not ported yet"
+        return "--profile (the stage-separated time split) is not ported yet"
+    if not args.persp_ckpt:
+        for name in _MODEL_MODE:
+            if getattr(args, name) is not None:
+                return (f"--{name.replace('_', '-')} applies to the "
+                        f"on-device model mode only; pass --persp-ckpt")
+        if not args.no_extract:
+            return ("stage-A view extraction to files is not ported yet: "
+                    "pass --no-extract and provide the depth views in "
+                    "--views-folder, or run the model mode (--persp-ckpt)")
+        if args.batch_size != 1:
+            return ("--batch-size > 1 in file mode (the batched merge) is "
+                    "not ported yet")
+        return None
+    if args.base_width and not args.baseline_ckpt:
+        return ("--base-width resizes a --baseline-ckpt model's input; "
+                "baseline files (the baseline folder) are consumed at their "
+                "stored size")
+    if args.extract_dtype not in (None, "auto", "f32"):
+        return (f"--extract-dtype {args.extract_dtype} is a TPU gather "
+                f"table and is not ported; use auto or f32")
+    if args.p99 not in (None, "sort"):
+        return (f"--p99 {args.p99} is a TPU selection and is not ported; "
+                f"use sort")
+    if args.batch_size < 1:
+        return f"--batch-size must be >= 1, got {args.batch_size}"
     return None
 
 
@@ -97,9 +152,25 @@ def main(argv=None) -> int:
     if refusal:
         raise SystemExit(f"panodepth_torch: {refusal}")
     from .config import MergeConfig
-    from .pipeline import run_batch
 
     cfg = MergeConfig(layout_name=args.layout, out_width=args.out_width)
+    if args.persp_ckpt:
+        from .e2e import run_batch_e2e
+
+        run_batch_e2e(
+            args.rgb_folder, args.gt_folder, args.result_folder,
+            args.persp_ckpt, cfg, baseline_ckpt=args.baseline_ckpt,
+            baseline_folder=args.baseline_folder, dataset=args.dataset,
+            view_width=args.view_width, limit=args.limit,
+            include=args.include, exclude=args.exclude, shard=args.shard,
+            batch_size=args.batch_size, jacobi=args.jacobi,
+            extract_dtype=args.extract_dtype or "auto",
+            infer_norm=args.infer_norm or "auto",
+            base_width=args.base_width, device=args.device,
+        )
+        return 0
+    from .pipeline import run_batch
+
     run_batch(
         args.rgb_folder, args.gt_folder, args.baseline_folder,
         args.result_folder, cfg,

@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("jacobi",)
+SOURCES = ("jacobi", "groupnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction: the kernels round like the plain PyTorch versions

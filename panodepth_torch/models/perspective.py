@@ -1,0 +1,216 @@
+"""The normalizer-free perspective depth CNN, ``NFPerspectiveNet``.
+
+Counterpart of ``panodepth/models/perspective.py`` (``_groups``,
+``WSConv``, ``NFResBlock``, ``NFFusionBlock``, ``NFPerspectiveNet``,
+``_percentile99``, ``predict_depth01``; perspective.py:29, 211-415): the
+on-device replacement of the reference's external LeReS/MiDaS CNN
+(``Main.cpp:465-474``), a ResNet encoder with a RefineNet decoder built
+from weight-standardised convs, no norms.  It takes (B, H, W, 3) RGB in
+[0, 1], H and W multiples of 32, and returns (B, H, W) positive values;
+inside, activations are NCHW.
+
+The numerics are the JAX package's, including where they are odd:
+
+* ``dtype`` (bf16 by default, as in JAX; f32 for tight tests) is the conv
+  compute type; the output head is f32.
+* The scalar factors of the residual stream (``1/beta``, ``alpha``,
+  ``1/sqrt(2)``) are rounded to ``dtype`` first (0.2 becomes 0.2001953 in
+  bf16), as ``jnp.asarray(v, dtype)`` rounds them.
+* A conv adds its bias after its output is rounded to ``dtype``
+  (``layers.Conv``), with lax's asymmetric SAME padding at stride 2.
+* The weight standardisation depends on the weights only, so it is done
+  once per set of weights (in f32 on the device, then cast), not per call.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.resize import resize_bilinear, upsample2_nearest
+from .layers import Conv, Derived, same_pads, softplus
+
+
+def _groups(channels: int, target: int = 32) -> int:
+    """A divisor of ``channels`` close to ``target`` (for GroupNorm)."""
+    return math.gcd(channels, target)
+
+
+# relu gain: 1/sqrt(E[relu(z)^2]) for z ~ N(0,1) (NF-ResNets, Brock et
+# al. 2021), as in the JAX package
+_RELU_GAIN = math.sqrt(2.0 / (1.0 - 1.0 / math.pi))
+
+
+def _const(v: float, dtype, device):
+    """``jnp.asarray(v, dtype)``: the scalar rounded to ``dtype``."""
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+class WSConv(Derived):
+    """Conv with scaled weight standardisation and a learnable gain and
+    bias; lax SAME padding.  ``kernel`` is OIHW; standardised over
+    (cin, kh, kw) per output channel."""
+
+    def __init__(self, cin: int, features: int, kernel=(3, 3), strides=(1, 1),
+                 dtype=torch.bfloat16, gain_act: float = _RELU_GAIN):
+        super().__init__()
+        kh, kw = kernel
+        self.strides = tuple(strides)
+        self.dtype = dtype
+        self.gain_act = gain_act
+        self.kernel = nn.Parameter(torch.empty(features, cin, kh, kw),
+                                   requires_grad=False)
+        nn.init.kaiming_normal_(self.kernel)
+        self.gain = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+
+    def _standardize(self):
+        w = self.kernel.to(torch.float32)
+        mu = w.mean((1, 2, 3), keepdim=True)
+        var = ((w - mu) * (w - mu)).mean((1, 2, 3), keepdim=True)
+        fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+        w = (w - mu) * torch.rsqrt(var * fan_in + 1e-8)
+        w = w * (self.gain_act * self.gain)[:, None, None, None]
+        return w.to(self.dtype)
+
+    def weight(self):
+        """The standardised kernel as the conv uses it."""
+        return self.derived(self._standardize, self.kernel, self.gain)
+
+    def forward(self, x):
+        kh, kw = self.kernel.shape[2:]
+        (t, b), (l, r) = (same_pads(x.shape[2], kh, self.strides[0]),
+                          same_pads(x.shape[3], kw, self.strides[1]))
+        x = x.to(self.dtype)
+        if t or b or l or r:
+            x = F.pad(x, (l, r, t, b))
+        y = F.conv2d(x, self.weight(), stride=self.strides)
+        return y + self.bias.to(self.dtype)[:, None, None]
+
+
+class NFResBlock(nn.Module):
+    """Pre-activation residual block ``h + alpha * f(relu(h / beta))``;
+    a transition block (stride or width change) also routes the shortcut
+    through the scaled activation."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 alpha: float = 0.2, beta: float = 1.0, dtype=torch.bfloat16):
+        super().__init__()
+        self.alpha, self.beta, self.dtype = alpha, beta, dtype
+        s = (stride, stride)
+        self.WSConv_0 = WSConv(cin, features, (3, 3), s, dtype=dtype)
+        self.WSConv_1 = WSConv(features, features, (3, 3), dtype=dtype)
+        self.WSConv_2 = (WSConv(cin, features, (1, 1), s, dtype=dtype)
+                         if cin != features or stride != 1 else None)
+
+    def forward(self, x):
+        out = torch.relu(x * _const(1.0 / self.beta, self.dtype, x.device))
+        y = torch.relu(self.WSConv_0(out))
+        y = self.WSConv_1(y)
+        if self.WSConv_2 is not None:
+            x = self.WSConv_2(out)
+        return x + _const(self.alpha, self.dtype, x.device) * y
+
+
+class NFFusionBlock(nn.Module):
+    """Norm-free RefineNet decoder block: nearest 2x upsample, WS conv,
+    the skip added and rescaled by 1/sqrt(2), then an NFResBlock."""
+
+    def __init__(self, cin: int, features: int, skip: Optional[int],
+                 alpha: float = 0.2, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.WSConv_0 = WSConv(cin, features, dtype=dtype, gain_act=1.0)
+        self.WSConv_1 = (WSConv(skip, features, dtype=dtype, gain_act=1.0)
+                         if skip is not None else None)
+        self.NFResBlock_0 = NFResBlock(features, features, alpha=alpha,
+                                       dtype=dtype)
+
+    def forward(self, x, skip=None):
+        x = self.WSConv_0(upsample2_nearest(x))
+        if skip is not None:
+            x = (x + self.WSConv_1(skip)) * _const(
+                1.0 / math.sqrt(2.0), self.dtype, x.device)
+        return self.NFResBlock_0(x)
+
+
+class NFPerspectiveNet(nn.Module):
+    """(B, H, W, 3) RGB in [0, 1] -> (B, H, W) positive depth-like values."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 widths: Sequence[int] = (64, 128, 256, 512),
+                 decoder_width: int = 128, alpha: float = 0.2,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.stage_sizes = tuple(stage_sizes)
+        self.WSConv_0 = WSConv(3, widths[0] // 2, (7, 7), (2, 2), dtype=dtype,
+                               gain_act=1.0)
+        cin, var, k = widths[0] // 2, 1.0, 0
+        for blocks, width in zip(stage_sizes, widths):
+            for b in range(blocks):
+                self.add_module(f"NFResBlock_{k}", NFResBlock(
+                    cin, width, stride=2 if b == 0 else 1, alpha=alpha,
+                    beta=math.sqrt(var), dtype=dtype))
+                # a transition resets the stream's variance, then each
+                # block adds alpha^2 (tracked analytically, as in JAX)
+                var = (1.0 if b == 0 else var) + alpha ** 2
+                cin, k = width, k + 1
+        self.WSConv_1 = WSConv(widths[-1], decoder_width, dtype=dtype,
+                               gain_act=1.0)
+        skips = list(reversed(widths[:-1])) + [None]
+        for k, skip in enumerate(skips):
+            self.add_module(f"NFFusionBlock_{k}", NFFusionBlock(
+                decoder_width, decoder_width, skip, alpha=alpha, dtype=dtype))
+        self.WSConv_2 = WSConv(decoder_width, decoder_width // 2, dtype=dtype)
+        self.WSConv_3 = WSConv(decoder_width // 2, 32, dtype=dtype)
+        self.Conv_0 = Conv(32, 1, (1, 1), dtype=torch.float32)
+
+    def forward(self, rgb):
+        x = rgb.permute(0, 3, 1, 2).to(self.dtype)
+        x = self.WSConv_0(x)
+        skips, k = [], 0
+        for blocks in self.stage_sizes:
+            for _ in range(blocks):
+                x = getattr(self, f"NFResBlock_{k}")(x)
+                k += 1
+            skips.append(x)
+        y = self.WSConv_1(skips[-1])
+        for k, skip in enumerate(list(reversed(skips[:-1])) + [None]):
+            y = getattr(self, f"NFFusionBlock_{k}")(y, skip)
+        y = torch.relu(self.WSConv_2(torch.relu(y)))
+        h, w = y.shape[2:]
+        y = resize_bilinear(y, (h * 2, w * 2))
+        y = torch.relu(self.WSConv_3(y))
+        return softplus(self.Conv_0(y)[:, 0])
+
+
+def _percentile99(flat):
+    """Per-row 99th percentile of (B, N), as ``jnp.percentile(flat, 99.0,
+    axis=1)`` computes it: a full sort, then linear interpolation between
+    ranks floor and ceil of ``0.99 * (N - 1)`` in f32."""
+    n = flat.shape[1]
+    q = torch.tensor(99.0, dtype=torch.float32) / 100
+    q = q * torch.tensor(float(n), dtype=torch.float32).sub(1)
+    low, high = torch.floor(q), torch.ceil(q)
+    high_w = q - low
+    low_w = 1 - high_w
+    lo = int(torch.clamp(low, 0, n - 1))
+    hi = int(torch.clamp(high, 0, n - 1))
+    s = torch.sort(flat.to(torch.float32), dim=1).values
+    return (s[:, lo] * low_w.to(flat.device)
+            + s[:, hi] * high_w.to(flat.device))
+
+
+def predict_depth01(model: nn.Module, rgb):
+    """Run the net and map its positive output into the 0~1 depth encoding,
+    normalised per image by its 99th percentile (a monotone map the cubic
+    registration absorbs, Depth.cpp:1261-1414)."""
+    pred = model(rgb)
+    hi = _percentile99(pred.reshape(pred.shape[0], -1))
+    return torch.clamp(pred / torch.clamp_min(hi, 1e-6)[:, None, None],
+                       0.0, 1.0)

@@ -1,0 +1,124 @@
+"""Carry the JAX package's checkpoints into the port's nets.
+
+Counterpart of ``panodepth/models/train.py::load_params_npz``
+(train.py:239-256) and of the architecture-sidecar logic of
+``panodepth/e2e.py::load_model_checkpoint`` (e2e.py:126-234), for the two
+nets of the e2e graph: ``perspective`` checkpoints of variant ``nf``
+(:class:`NFPerspectiveNet`) and ``fastpano`` checkpoints
+(:class:`FastPanoNet`).  Any other kind raises.
+
+A ``*.params.npz`` checkpoint stores each flax parameter under its path
+(``"['params']['CircResBlock_0']['GroupNorm_1']['scale']"``) as bf16 bit
+patterns in ``uint16``; they widen exactly to f32 as ``u16 << 16``.  The
+port's nets keep flax's module and parameter names, so a path maps to the
+port's parameter ``CircResBlock_0.GroupNorm_1.scale`` mechanically; only
+conv kernels change layout (flax HWIO -> OIHW) and dense kernels (flax
+(in, out) -> (out, in)).  Loading fails unless every key of the file is
+consumed and every parameter of the net is filled.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+_KEY = re.compile(r"\['([^']+)'\]")
+
+
+def read_params_npz(path: str) -> Dict[str, np.ndarray]:
+    """{flax path string: f32 array} of a ``save_params_npz`` export."""
+    out = {}
+    with np.load(path, allow_pickle=False) as z:
+        for key in z.files:
+            a = z[key]
+            if a.dtype == np.uint16:  # bf16 bit patterns, widened exactly
+                a = (a.astype(np.uint32) << 16).view(np.float32)
+            out[key] = np.asarray(a, np.float32)
+    return out
+
+
+def port_name(key: str) -> str:
+    """The port's parameter name for a flax path string:
+    ``['params']['A']['b']`` -> ``A.b``."""
+    parts = _KEY.findall(key)
+    if not parts or parts[0] != "params" or "".join(
+            f"['{p}']" for p in parts) != key:
+        raise ValueError(f"not a flax parameter path: {key!r}")
+    return ".".join(parts[1:])
+
+
+def to_port_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """A flax leaf in the port's layout: conv kernels HWIO -> OIHW, dense
+    kernels (in, out) -> (out, in); everything else as it is."""
+    if name.endswith("kernel") and a.ndim == 4:
+        return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+    if name.endswith("kernel") and a.ndim == 2:
+        return np.ascontiguousarray(a.T)
+    return a
+
+
+def load_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
+    """Copy the flax leaves ``flat`` (as :func:`read_params_npz` returns
+    them) into ``model``'s parameters; raises unless the two match one to
+    one in names and shapes.  Returns ``model``."""
+    params = dict(model.named_parameters())
+    converted = {}
+    for key, a in flat.items():
+        name = port_name(key)
+        converted[name] = to_port_layout(name, a)
+    unused = sorted(set(converted) - set(params))
+    missing = sorted(set(params) - set(converted))
+    if unused or missing:
+        raise ValueError(f"checkpoint and {type(model).__name__} disagree: "
+                         f"unused checkpoint keys {unused[:8]}"
+                         f"{'...' if len(unused) > 8 else ''}, unfilled "
+                         f"parameters {missing[:8]}"
+                         f"{'...' if len(missing) > 8 else ''}")
+    with torch.no_grad():
+        for name, a in converted.items():
+            p = params[name]
+            if tuple(p.shape) != a.shape:
+                raise ValueError(f"param {name}: checkpoint shape {a.shape} "
+                                 f"!= model shape {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(a, np.float32)))
+    return model
+
+
+def read_arch(ckpt_path: str) -> dict:
+    """The architecture sidecar ``<model>.config.json`` beside a checkpoint
+    (``perspective_final.params.npz`` -> ``perspective.config.json``)."""
+    ckpt_path = os.path.abspath(ckpt_path)
+    name = os.path.basename(ckpt_path).split("_")[0].split(".")[0]
+    with open(os.path.join(os.path.dirname(ckpt_path),
+                           f"{name}.config.json")) as fp:
+        return json.load(fp)
+
+
+def build_model(arch: dict, dtype=torch.bfloat16,
+                norm_dtype=torch.float32) -> nn.Module:
+    """The net an architecture sidecar describes, with its widths scaled by
+    ``width_scale`` as the JAX loader scales them."""
+    s = arch.get("width_scale", 1.0)
+    kind, variant = arch["model"], arch.get("variant", "gn")
+    if kind == "perspective" and variant == "nf":
+        from .perspective import NFPerspectiveNet
+
+        return NFPerspectiveNet(
+            widths=tuple(max(8, int(w * s)) for w in (64, 128, 256, 512)),
+            decoder_width=max(16, int(128 * s)), dtype=dtype)
+    if kind == "fastpano":
+        from .fastpano import FastPanoNet
+
+        return FastPanoNet(
+            widths=tuple(max(8, int(w * s)) for w in (48, 96, 192, 384)),
+            decoder_width=max(16, int(96 * s)), dtype=dtype,
+            norm_dtype=norm_dtype)
+    raise ValueError(f"model kind {kind!r} (variant {variant!r}) is not "
+                     f"ported yet: the port runs perspective/nf and fastpano "
+                     f"checkpoints")

@@ -1,0 +1,294 @@
+"""The on-device e2e graph of the port (``panodepth_torch.e2e``) against the
+JAX package's (``panodepth.e2e``): ``build_batched_e2e``, ``full_pipeline``
+and the model-mode CLI, with the zoo's trained nets
+(``zoo/perspective_final.params.npz``, ``zoo/fastpano_final.params.npz``),
+on synthetic RGB panoramas made with numpy, at a small layout (two views,
+out width 64, view width 64, baseline width 64).
+
+Bars on the u16 output:
+
+* f32 nets (``dtype`` f32 in both packages): max 4, mean < 0.5 -- the
+  oracle's bar of the file-mode merge (``tests/test_parity_default.py``).
+* bf16 nets (the shipping mode, and the CLI's): each conv rounds its
+  output to bf16 after sums taken in another order than XLA's, and the
+  registration's cubic fit amplifies the flips (the zoo perspective net
+  maps these synthetic scenes into a narrow depth range, so the cubics
+  are steep).  Measured max 111, mean 17.4 at the two-view layout, and up
+  to max 1057, mean 36.3 at the four built-in layouts 128-256 wide; held
+  to max 2048, mean 64.
+"""
+
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from panodepth import cli as jcli
+from panodepth import e2e as je
+from panodepth.config import MergeConfig as JaxMergeConfig
+from panodepth.config import ViewLayout, register_layout
+
+import panodepth_torch.config as tconfig
+from panodepth_torch import cli as tcli
+from panodepth_torch import e2e as te
+from panodepth_torch import io as tio
+from panodepth_torch.kernels import groupnorm as kg
+from panodepth_torch.kernels import jacobi as kj
+
+from conftest import make_equirect
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PERSP = os.path.join(ROOT, "zoo", "perspective_final.params.npz")
+BASE = os.path.join(ROOT, "zoo", "fastpano_final.params.npz")
+D2R = math.pi / 180.0
+F32_BAR = (4, 0.5)
+BF16_BAR = (2048, 64.0)
+
+# two views under 180 degrees (stage A's gnomonic limit), as test_e2e.py's
+FOVS = np.array([(25 * D2R, 175 * D2R, 30 * D2R, 150 * D2R),
+                 (185 * D2R, 355 * D2R, 30 * D2R, 150 * D2R)])
+RANGES = np.array([(170 * D2R, 30 * D2R, 40 * D2R, 140 * D2R),
+                   (350 * D2R, 190 * D2R, 40 * D2R, 140 * D2R)])
+register_layout(ViewLayout("torch_e2e", fovs=FOVS, ranges=RANGES))
+tconfig.layout_from_arrays("torch_e2e", FOVS, RANGES)
+JCFG = JaxMergeConfig(layout_name="torch_e2e", out_width=64)
+TCFG = tconfig.MergeConfig(layout_name="torch_e2e", out_width=64)
+
+
+def _scene(k, rng, w=128):
+    """(w/2, w, 3) f32 RGB in 0~1: smooth colour fields and a little noise."""
+    h = w // 2
+    az = np.linspace(0, 2 * np.pi, w, endpoint=False)[None, :]
+    ze = np.linspace(0, np.pi, h)[:, None]
+    r = 0.5 + 0.3 * np.sin(3 * az + k) * np.sin(ze)
+    g = np.broadcast_to(0.5 + 0.3 * np.cos(2 * ze + az), (h, w))
+    b = make_equirect(w, h)
+    img = np.stack([r, g, b], -1) + 0.05 * rng.rand(h, w, 3)
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+def _u16_diff(a, b):
+    d = np.abs(np.asarray(a).astype(np.int32) - np.asarray(b).astype(np.int32))
+    return int(d.max()), float(d.mean())
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both packages' batched e2e outputs in f32 and bf16 on two scenes."""
+    rng = np.random.RandomState(3)
+    rgbs = np.stack([_scene(0, rng), _scene(1, rng)])
+    out = {"rgbs": rgbs}
+    for mode, jd, td in (("f32", jnp.float32, torch.float32),
+                         ("bf16", jnp.bfloat16, torch.bfloat16)):
+        jp, jpp, _ = je.load_model_checkpoint(PERSP)
+        jb, jbp, _ = je.load_model_checkpoint(BASE)
+        jp, jb = jp.clone(dtype=jd), jb.clone(dtype=jd)
+        tp, _ = te.load_model_checkpoint(PERSP, device="cpu", dtype=td)
+        tb, _ = te.load_model_checkpoint(BASE, device="cpu", dtype=td)
+        jfull, _, _ = je.build_batched_e2e(jp, jpp, JCFG, view_width=64,
+                                           base_model=jb, base_params=jbp,
+                                           base_w=64)
+        tfull, _, _ = te.build_batched_e2e(tp, TCFG, view_width=64,
+                                           base_model=tb, base_w=64,
+                                           device="cpu")
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        t_out, t_base = tfull(torch.tensor(rgbs))
+        assert kj.LAUNCHES == kg.LAUNCHES == 0  # the CPU runs no kernel
+        j_out, j_base = jfull(jnp.asarray(rgbs))
+        out[mode] = dict(j=np.asarray(j_out), t=t_out.numpy(),
+                         jb=np.asarray(j_base), tb=t_base.numpy(),
+                         models=(jp, jpp, jb, jbp, tp, tb), tfull=tfull)
+    return out
+
+
+@pytest.mark.parametrize("mode,bar", [("f32", F32_BAR), ("bf16", BF16_BAR)])
+def test_batched_e2e_matches_jax(runs, mode, bar):
+    r = runs[mode]
+    assert r["t"].shape == r["j"].shape == (2, 32, 64)
+    assert r["t"].dtype == np.uint16
+    dmax, dmean = _u16_diff(r["t"], r["j"])
+    assert dmax <= bar[0] and dmean < bar[1], (dmax, dmean)
+    # the baseline CNN's output, within the nets' own bars
+    tol = 1e-5 if mode == "f32" else 1e-2
+    np.testing.assert_allclose(r["tb"], r["jb"], rtol=0, atol=tol)
+
+
+def test_full_pipeline_matches_jax_and_batched_equals_single(runs):
+    jp, jpp, jb, jbp, tp, tb = runs["f32"]["models"]
+    rgb = runs["rgbs"][1]
+    # the params are arguments, not constants folded into the graph
+    want = jax.jit(lambda pp, bp, r: je.full_pipeline(
+        r, jp, pp, jb, bp, cfg=JCFG, view_width=64, base_w=64))(
+        jpp, jbp, jnp.asarray(rgb))
+    got = te.full_pipeline(torch.tensor(rgb), tp, tb, cfg=TCFG,
+                           view_width=64, base_w=64, device="cpu")
+    assert got[0].shape == want[0].shape == (32, 64)
+    dmax, dmean = _u16_diff(got[0], want[0])
+    assert dmax <= F32_BAR[0] and dmean < F32_BAR[1], (dmax, dmean)
+    assert len(got[3]) == TCFG.layout.num_views
+    # the batched graph at batch 1 and 2 gives the single-panorama result
+    single, _ = runs["f32"]["tfull"](torch.tensor(rgb[None]))
+    assert _u16_diff(single[0], got[0])[0] <= 1
+    assert _u16_diff(runs["f32"]["t"][1], got[0])[0] <= 1
+    # the baseline given as an array instead of a net, u16 as from a file
+    base_u16 = (np.clip(runs["f32"]["tb"][1], 0, 1) * 65535).astype(np.uint16)
+    want = jax.jit(lambda pp, r, b: je.full_pipeline(
+        r, jp, pp, baseline=b, cfg=JCFG, view_width=64))(
+        jpp, jnp.asarray(rgb),
+        jnp.asarray(base_u16.astype(np.float32) / 65535.0))
+    got = te.full_pipeline(torch.tensor(rgb), tp, baseline=torch.tensor(
+        base_u16), cfg=TCFG, view_width=64, device="cpu")
+    dmax, dmean = _u16_diff(got[0], want[0])
+    assert dmax <= F32_BAR[0] and dmean < F32_BAR[1], (dmax, dmean)
+
+
+def _write_rgb8_png(path, rgb01):
+    import struct
+    import zlib
+
+    u8 = (rgb01 * 255 + 0.5).astype(np.uint8)
+    h, w, _ = u8.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, -1)], 1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as fp:
+        fp.write(b"\x89PNG\r\n\x1a\n"
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                 + chunk(b"IEND", b""))
+
+
+def test_model_mode_cli_matches_jax_cli_with_resume(tmp_path, capsys):
+    """Both CLIs in model mode on a folder of two 8-bit RGB PNGs (one with
+    a gt), the baseline from the baseline CNN, nets in bf16: the port's
+    files equal its in-memory graph on the decoded panoramas and agree
+    with the JAX CLI's within the bf16 bar; then the port's CLI again,
+    which skips both."""
+    rng = np.random.RandomState(5)
+    for d in ("rgb", "gt", "bl"):
+        (tmp_path / d).mkdir()
+    names = ["p0", "p1"]
+    for k, name in enumerate(names):
+        _write_rgb8_png(str(tmp_path / "rgb" / f"{name}.png"),
+                        _scene(k + 2, rng, w=256))
+    gt = np.clip(make_equirect(128, 64) * 0.9 + 0.05, 0, 1)
+    tio.save_png16(str(tmp_path / "gt" / "p0.png"),
+                   (gt * 65535).astype(np.uint16))
+    args = ["0", str(tmp_path / "rgb"), str(tmp_path / "gt"),
+            str(tmp_path / "bl")]
+    common = ["--persp-ckpt", PERSP, "--baseline-ckpt", BASE, "--layout",
+              "3fold", "--out-width", "128", "--view-width", "64",
+              "--base-width", "128"]
+    assert jcli.main(args + [str(tmp_path / "res_jax")] + common) == 0
+    assert tcli.main(args + [str(tmp_path / "res_torch")] + common
+                     + ["--device", "cpu"]) == 0
+    for name in names:
+        want = tio.read_png(str(tmp_path / "res_jax" / f"{name}.png"))
+        got = tio.read_png(str(tmp_path / "res_torch" / f"{name}.png"))
+        assert got.shape == want.shape == (64, 128)
+        dmax, dmean = _u16_diff(got, want)
+        assert dmax <= BF16_BAR[0] and dmean < BF16_BAR[1], (name, dmax,
+                                                             dmean)
+    # the CLI's plumbing (decode, batch, names) adds nothing to the graph
+    tp, _ = te.load_model_checkpoint(PERSP, device="cpu")
+    tb, _ = te.load_model_checkpoint(BASE, device="cpu")
+    full, _, _ = te.build_batched_e2e(
+        tp, tconfig.MergeConfig(layout_name="3fold", out_width=128),
+        view_width=64, base_model=tb, base_w=128, device="cpu")
+    for name in names:
+        rgb = tio.load_image01(str(tmp_path / "rgb" / f"{name}.png"))
+        mem, _ = full(torch.tensor(rgb[None]))
+        np.testing.assert_array_equal(
+            tio.read_png(str(tmp_path / "res_torch" / f"{name}.png")),
+            mem[0].numpy())
+    assert (tmp_path / "res_torch" / "p0.aligned.txt").is_file()
+    assert not (tmp_path / "res_torch" / "p1.aligned.txt").exists()
+    capsys.readouterr()
+    kj.LAUNCHES = kg.LAUNCHES = 0
+    before = (tmp_path / "res_torch" / "p0.png").read_bytes()
+    tcli.main(args + [str(tmp_path / "res_torch")] + common
+              + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "0/2 skip!" in out and "1/2 skip!" in out
+    assert (tmp_path / "res_torch" / "p0.png").read_bytes() == before
+
+
+@pytest.mark.parametrize("extra,needle", [
+    (("--extract-dtype", "pair16"), "--extract-dtype pair16"),
+    (("--p99", "approx"), "--p99 approx"),
+    (("--persp-int8",), "--persp-int8"),
+    (("--latency",), "--latency"),
+    (("--stream", "on"), "--stream"),
+    (("--profile",), "--profile"),
+])
+def test_model_mode_refuses_what_is_not_ported(tmp_path, extra, needle):
+    argv = ["0"] + [str(tmp_path)] * 4 + ["--persp-ckpt", PERSP,
+                                           "--device", "cpu"]
+    with pytest.raises(SystemExit) as e:
+        tcli.main(argv + list(extra))
+    assert needle in str(e.value.code) and "not ported" in str(e.value.code)
+
+
+@pytest.mark.parametrize("extra,needle", [
+    (("--base-width", "256"), "--base-width"),
+    (("--baseline-ckpt", BASE, "--batch-size", "0"), "--batch-size"),
+])
+def test_model_mode_refusals_of_the_jax_cli(tmp_path, extra, needle):
+    argv = ["0"] + [str(tmp_path)] * 4 + ["--persp-ckpt", PERSP,
+                                           "--device", "cpu"]
+    with pytest.raises(SystemExit) as e:
+        tcli.main(argv + list(extra))
+    assert needle in str(e.value.code)
+
+
+def test_extract_dtype_policy():
+    assert te._resolve_extract_dtype("auto") == "f32"
+    assert te._resolve_extract_dtype("f32") == "f32"
+    for mode in ("packed", "packed16", "pair16", "pair16d", "bf16"):
+        with pytest.raises(ValueError, match="not ported"):
+            te._resolve_extract_dtype(mode)
+    assert te._round32(247) == 256 and te._round32(256) == 256
+    assert te._round32(5) == 32
+    u8 = torch.tensor([[0, 255]], dtype=torch.uint8)
+    assert te._as01_img(u8).tolist() == [[0.0, 1.0]]
+
+
+def test_run_batch_e2e_batched_matches_single(tmp_path):
+    """``--batch-size`` in model mode, as tests/test_e2e.py checks the JAX
+    driver: three panoramas at batch 1 and batch 2 (the odd count pads the
+    last chunk), baselines from files; the same files and metrics."""
+    rng = np.random.RandomState(7)
+    for d in ("rgb", "gt", "bl"):
+        (tmp_path / d).mkdir()
+    for i in range(3):
+        _write_rgb8_png(str(tmp_path / "rgb" / f"p{i}.png"),
+                        _scene(i, rng, w=256))
+        tio.save_png16(str(tmp_path / "gt" / f"p{i}.png"),
+                       (rng.rand(64, 128) * 60000).astype(np.uint16))
+        # a result folder named *hohonet* reads <raw>.depth.png baselines
+        tio.save_png16(str(tmp_path / "bl" / f"p{i}.depth.png"),
+                       (rng.rand(32, 64) * 60000 + 2000).astype(np.uint16))
+    cfg = tconfig.MergeConfig(layout_name="3fold", out_width=128)
+    outs, mets = {}, {}
+    for bs in (1, 2):
+        res = tmp_path / f"res_hohonet_b{bs}"
+        mets[bs] = te.run_batch_e2e(
+            str(tmp_path / "rgb"), str(tmp_path / "gt"), str(res), PERSP,
+            cfg, baseline_folder=str(tmp_path / "bl"), view_width=64,
+            batch_size=bs, log=lambda *a: None, device="cpu")
+        outs[bs] = [tio.read_png(str(res / f"p{i}.png")) for i in range(3)]
+    assert len(mets[1]) == len(mets[2]) == 3
+    for a, b in zip(outs[1], outs[2]):
+        assert a.shape == (64, 128) and _u16_diff(a, b)[0] <= 1
+    for m1, m2 in zip(mets[1], mets[2]):
+        np.testing.assert_allclose(m1.mse_result, m2.mse_result, rtol=1e-4,
+                                   atol=1e-7)

@@ -1,6 +1,6 @@
-"""The Jacobi wrapper: routing, launch counting, argument checks, the
-nvcc build's naming, and (on a CUDA card only) the kernel against its
-plain twin.
+"""The kernels' wrappers (Jacobi and GroupNorm): routing, launch counting,
+argument checks, the nvcc build's naming, and (on a CUDA card only) each
+kernel against its plain twin.
 
 The card tests carry the ``cuda`` marker and skip without a card; the
 decision is made inside the fixture, never at import.  On a card, run
@@ -13,7 +13,9 @@ import pytest
 import torch
 
 from panodepth_torch.kernels import _build
+from panodepth_torch.kernels import groupnorm as kgn
 from panodepth_torch.kernels import jacobi as kj
+from panodepth_torch.models import norm as tnorm
 
 torch.set_num_threads(1)
 
@@ -105,3 +107,114 @@ def test_cuda_kernel_zero_iterations_and_input_untouched(cuda_device):
     kj.cuda_jacobi(buf, tgt, cov, 5, 0.5, 1e-4)
     torch.cuda.synchronize()
     assert torch.equal(buf, keep)
+
+
+# --- the GroupNorm kernel (csrc/groupnorm.cu) -----------------------------
+
+def _gn_case(shape, groups, seed, device="cpu", dtype=torch.bfloat16):
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.normal(0.3, 1.7, shape).astype(np.float32),
+                     device=device).to(dtype)
+    c = shape[1]
+    scale = torch.tensor(rng.uniform(0.5, 2, c).astype(np.float32),
+                         device=device)
+    bias = torch.tensor(rng.uniform(-1, 1, c).astype(np.float32),
+                        device=device)
+    return x, scale, bias
+
+
+def test_groupnorm_build_name():
+    path = _build.library_path("groupnorm")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libgroupnorm-")
+    assert "groupnorm" in _build.SOURCES and "jacobi" in _build.SOURCES
+
+
+@pytest.mark.parametrize("bad", ["cpu_tensor", "f64", "scale_shape",
+                                 "groups", "strided"])
+def test_cuda_group_norm_refuses_bad_arguments(bad):
+    on_card = bad != "cpu_tensor" and torch.cuda.is_available()
+    x, scale, bias = _gn_case((2, 8, 4, 4), 4, 1,
+                              device="cuda" if on_card else "cpu")
+    groups = 4
+    if bad == "f64":
+        x = x.double()
+    elif bad == "scale_shape":
+        scale = scale[:4]
+    elif bad == "groups":
+        groups = 3
+    elif bad == "strided":
+        x = x.transpose(2, 3)
+    before = kgn.LAUNCHES
+    with pytest.raises((TypeError, ValueError)):
+        kgn.cuda_group_norm(x, scale, bias, groups)
+    assert kgn.LAUNCHES == before
+
+
+def _bf16_steps_off(got, want, f32_tol):
+    """Largest |got - want| in bf16 steps at ``want``'s magnitude, beyond
+    ``f32_tol`` (near 0 the steps are finer than the f32 statistics' own
+    error)."""
+    w = want.float().abs()
+    step = torch.where(w > 0, torch.exp2(torch.floor(torch.log2(w)) - 7),
+                       torch.zeros_like(w))
+    off = ((got.float() - want.float()).abs() - f32_tol).clamp_min(0)
+    return float((off / torch.clamp_min(step, 2.0 ** -133)).max())
+
+
+def test_bf16_steps_off_counts_steps():
+    want = torch.tensor([1.0, 3.0, -0.5]).to(torch.bfloat16)
+    got = torch.tensor([1.0078125, 3.0, -0.50390625]).to(torch.bfloat16)
+    assert _bf16_steps_off(got, want, 0.0) == 1.0  # one step each
+    assert _bf16_steps_off(want, want, 0.0) == 0.0
+    zero = torch.zeros(1, dtype=torch.bfloat16)
+    tiny = torch.full((1,), 1e-9).to(torch.bfloat16)
+    assert _bf16_steps_off(tiny, zero, 0.0) > 1  # 1e-9 from 0
+    assert _bf16_steps_off(tiny, zero, 1e-8) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [
+    ((1, 24, 128, 256), 8), ((1, 48, 64, 128), 16), ((1, 96, 32, 64), 32),
+    ((1, 192, 16, 32), 32), ((1, 384, 8, 16), 32), ((2, 96, 128, 256), 32),
+    ((3, 20, 7, 9), 4), ((1, 4, 1, 1), 4)])
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("relu", [False, True])
+def test_cuda_group_norm_matches_plain(cuda_device, shape, groups, in_dtype,
+                                       relu):
+    """f32 output within 16 f32 ulps of its largest magnitude (at least 1):
+    the sums' order differs and rsqrtf is not correctly rounded; bf16
+    output within 1 bf16 step at each value beyond that bound."""
+    x, scale, bias = _gn_case(shape, groups, sum(shape), cuda_device,
+                              in_dtype)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        kgn.LAUNCHES = 0
+        got = kgn.cuda_group_norm(x, scale, bias, groups, 1e-6, relu,
+                                  out_dtype)
+        assert kgn.LAUNCHES == kgn.launches_per_call() == 2
+        want = kgn.group_norm_plain(x, scale, bias, groups, 1e-6, relu,
+                                    out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == x.shape
+        assert bool(torch.isfinite(got).all())
+        tol = 16 * 2.0 ** -23 * max(1.0, float(want.float().abs().max()))
+        if out_dtype == torch.bfloat16:
+            assert _bf16_steps_off(got, want, tol) <= 1
+        else:
+            assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_constant_group_and_module_route(cuda_device):
+    x, scale, bias = _gn_case((2, 8, 16, 16), 4, 5, cuda_device,
+                              torch.float32)
+    x[:, :2] = 0.1  # group 0: one value, variance ~ 0
+    got = kgn.cuda_group_norm(x, scale, bias, 4)
+    want = kgn.group_norm_plain(x, scale, bias, 4)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2.0 ** -10
+    m = tnorm.GroupNorm(8, 4, fuse_relu=True).to(cuda_device)
+    kgn.LAUNCHES = 0
+    y = m(x.to(torch.bfloat16))  # auto: the kernel on a CUDA tensor
+    assert kgn.LAUNCHES == 2 and float(y.min()) >= 0.0

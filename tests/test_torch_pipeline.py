@@ -181,7 +181,11 @@ def test_cli_resume_skips(cli_runs, capsys):
 
 @pytest.mark.parametrize("extra,needle", [
     ((), "stage-A"),
-    (("--persp-ckpt", "x.npz"), "--persp-ckpt"),
+    # the model mode runs (tests/test_torch_e2e.py); its int8 perspective
+    # graph is still refused
+    pytest.param(("--persp-ckpt", "x.npz", "--persp-int8"), "--persp-int8",
+                 id="extra1---persp-ckpt"),
+    # a model-mode flag without --persp-ckpt
     (("--baseline-ckpt", "b.npz"), "--baseline-ckpt"),
     (("--latency",), "--latency"),
     (("--batch-size", "4"), "--batch-size"),
@@ -195,7 +199,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path, extra, needle):
         argv.append("--no-extract")
     with pytest.raises(SystemExit) as e:
         tcli.main(argv + list(extra))
-    assert needle in str(e.value.code) and "not ported" in str(e.value.code)
+    msg = str(e.value.code)
+    assert needle in msg and ("not ported" in msg or "model mode only" in msg)
 
 
 def test_cli_cuda_without_card_raises(cli_runs, monkeypatch):

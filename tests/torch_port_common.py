@@ -68,3 +68,13 @@ def tiny_scene():
         pm = smooth_depth(azi, zen) * (0.75 + 0.1 * v) + 0.08 - 0.03 * v
         pmaps.append(np.clip(pm, 0, 1).astype(np.float32))
     return dict(jcfg=jcfg, tcfg=tcfg, emap=emap, pmaps=np.stack(pmaps))
+
+
+def flax_flat(params):
+    """{flax path string: f32 numpy leaf} of a flax params tree, the form
+    ``panodepth_torch.models.weights.load_params`` takes (the keys of a
+    ``save_params_npz`` export)."""
+    import jax
+
+    return {jax.tree_util.keystr(k): np.asarray(v, np.float32)
+            for k, v in jax.tree_util.tree_flatten_with_path(params)[0]}

@@ -10,9 +10,12 @@ temporary directory and to the git-ignored ``panodepth_torch/_build/``.
 Phases, each printing its elapsed seconds:
 
 1. device  — the card's name and power limit; TF32 off.
-2. build   — every CUDA source of the port compiled with nvcc (in parallel).
-3. kernel  — each kernel against its plain PyTorch version at the main
-             path's shapes, then timed beside it and beside its bound.
+2. build   — every CUDA source of the port compiled with nvcc (in parallel),
+             with ptxas's registers, shared memory and spills per kernel.
+3. kernel  — the Jacobi kernel bit-equal to its plain PyTorch version at
+             every level of the 2048 and the 4096 plan, each level's launch
+             plan printed; the 2048 levels timed beside the plain version
+             and the bound.
 4. merge   — the main path, ``merge_arrays`` at full width (5fold_leres,
              15 views, 2048 wide) on a synthetic scene, through the kernel
              (launches counted), against the plain-Jacobi path, and scored
@@ -23,8 +26,10 @@ Phases, each printing its elapsed seconds:
              inputs FastPanoNet's norms get at a 256x512 input (the zoo
              weights, a synthetic panorama), as bf16 -> f32 as the path
              runs them and as f32 -> f32, bf16 -> bf16, with and without
-             ReLU; a near-constant group and an odd shape; then the 29-call
-             set timed: kernel, plain version, ``F.group_norm``.
+             ReLU; a near-constant group and an odd shape; each shape's
+             cluster plan; then the 29-call set timed (kernel, plain
+             version, ``F.group_norm``) and its device time under the
+             profiler, the kernel's and ``F.group_norm``'s.
 7. models  — both zoo nets loaded from ``zoo/`` (FastPanoNet 1x256x512,
              NFPerspectiveNet 15x256x256): norm launches counted, outputs
              finite in 0~1, the baseline of the kernel route against the
@@ -134,9 +139,12 @@ def phase_build():
     for name in _build.SOURCES:
         print(f"built csrc/{name}.cu in {seconds.get(name, 0.0):.2f} s "
               f"({'compiled' if name in seconds else 'cached'})")
-        for line in _build.BUILD_LOGS.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip())
+        # ptxas -v: one entry line per kernel, then its spills and registers
+        for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                print("  " + line.split("'")[1][:100])
+            elif "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
 
 def _jacobi_cases(plan, rng, dev):
@@ -160,34 +168,53 @@ def _jacobi_cases(plan, rng, dev):
     return cases
 
 
-def phase_kernel(cfg):
-    """Kernel vs plain version (bit-equal expected; else <= 1 f32 ulp and
-    equal after u16 quantisation), then times at the plan's coverage."""
+def jacobi_launches(cfg):
+    """Jacobi launches per level of ``cfg``'s pyramid, by the kernel's plan."""
+    from panodepth_torch.fusion import build_fusion_plan
+    from panodepth_torch.kernels import jacobi as kj
+
+    return [kj.launches_for(lvl.height, lvl.width, lvl.iterations)
+            for lvl in build_fusion_plan(cfg).levels]
+
+
+def phase_kernel(cfg, cfg_4096):
+    """Kernel vs plain version, bit-equal, at every level of both plans;
+    then the 2048 levels timed at the plan's coverage."""
     from panodepth_torch.fusion import build_fusion_plan
     from panodepth_torch.kernels import jacobi as kj
 
     dev = torch.device("cuda")
-    plan = build_fusion_plan(cfg)
-    rng = np.random.RandomState(SEED)
     step, reg = cfg.jacobi_step, cfg.jacobi_reg
     max_abs = 0.0
     rows = []
-    for label, buf, tgt, cov, iters in _jacobi_cases(plan, rng, dev):
+    for c in (cfg, cfg_4096):
+        for lvl in build_fusion_plan(c).levels:
+            p = kj.plan_for(lvl.height, lvl.width, lvl.iterations)
+            print(f"jacobi plan {c.out_width}: {lvl.width}x{lvl.height} "
+                  f"x{lvl.iterations}: window {p.window[1]}x{p.window[0]} "
+                  f"({p.cols}x{p.rows} per thread, {p.warps} warps), tile "
+                  f"{p.tile[1]}x{p.tile[0]}, {p.halo} iterations per "
+                  f"launch, grid {p.grid[0]}x{p.grid[1]} = {p.blocks} blocks,"
+                  f" {p.launches} launches, {p.smem_bytes} B shared")
+    rng = np.random.RandomState(SEED)
+    cases = ([(c, "2048") for c in _jacobi_cases(build_fusion_plan(cfg), rng,
+                                                 dev)]
+             + [(c, "4096") for c in _jacobi_cases(
+                 build_fusion_plan(cfg_4096), rng, dev)])
+    for (label, buf, tgt, cov, iters), plan_name in cases:
         got = kj.cuda_jacobi(buf, tgt, cov, iters, step, reg)
         want = kj.jacobi_plain(buf, tgt, cov, iters, step, reg)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        ulps = _f32_ulps(got, want)
-        q = lambda t: (torch.clamp(t, 0, 1) * 65535.0).to(torch.int32)
-        u16_equal = torch.equal(q(got), q(want))
-        print(f"jacobi {label} x{iters}: max_abs_err {err!r}, {ulps} ulp, "
-              f"u16 equal {u16_equal}")
-        if ulps > 1 or not u16_equal:
-            raise AssertionError(f"jacobi kernel disagrees with the plain "
-                                 f"version ({label}): {ulps} ulp, max abs "
-                                 f"{err!r}, u16 equal {u16_equal}")
+        equal = torch.equal(got, want)
+        print(f"jacobi {plan_name} plan, {label} x{iters}: bit-equal "
+              f"{equal}, max_abs_err {err!r}, {_f32_ulps(got, want)} ulp")
+        if not equal:
+            raise AssertionError(f"jacobi kernel is not bit-equal to the "
+                                 f"plain version ({plan_name} plan, {label}):"
+                                 f" max abs {err!r}")
         max_abs = max(max_abs, err)
-        if "plan cov" not in label:
+        if "plan cov" not in label or plan_name != "2048":
             continue
         k_ms = _median_ms(lambda: kj.cuda_jacobi(buf, tgt, cov, iters, step,
                                                   reg), runs=7, warmup=2)
@@ -197,6 +224,7 @@ def phase_kernel(cfg):
         covered = int(cov.sum())
         rows.append(dict(shape=f"{w}x{h}", iterations=iters, covered=covered,
                          ms=k_ms, plain_ms=p_ms,
+                         launches=kj.launches_for(h, w, iters),
                          bytes=13 * h * w,           # buf, target, out f32; cov u8
                          ops=14 * covered * iters))  # per covered pixel-iteration
         print(f"jacobi {w}x{h} x{iters}: kernel {k_ms!r} ms, plain {p_ms!r} ms "
@@ -280,7 +308,7 @@ def phase_merge(cfg, scene):
     emap = torch.tensor(_as01(scene["base"]), device=dev)
     pmaps = torch.tensor(np.stack([_as01(v) for v in scene["views"]]), device=dev)
     gt = torch.tensor(_as01(scene["gt"]), device=dev)
-    per_level = [kj.launches_for(it) for it in cfg.schedule]
+    per_level = jacobi_launches(cfg)
     expected = sum(per_level)
 
     kj.LAUNCHES = 0
@@ -378,8 +406,7 @@ def phase_cli(cfg, scenes, merged0):
         launches = kj.LAUNCHES
         print(f"cli: jacobi kernel launches {launches} for {len(names)} "
               f"panoramas")
-        if launches != len(names) * sum(kj.launches_for(it)
-                                        for it in cfg.schedule):
+        if launches != len(names) * sum(jacobi_launches(cfg)):
             raise AssertionError(f"cli launched the kernel {launches} times")
         for name in names:
             for suffix in (".png", ".aligned.txt", ".png.res.png",
@@ -515,16 +542,15 @@ def _pano_feed(rgb_u8, dev):
                         device=dev)
 
 
-def phase_groupnorm(base, rgb_u8):
-    """The kernel against its plain version on the inputs of FastPanoNet's
-    29 norms at a 256x512 input, then the 29-call set timed."""
-    import torch.nn.functional as F
-    from panodepth_torch.kernels import groupnorm as kg
+def _norm_inputs(base, rgbs_u8):
+    """(module, input) of each of FastPanoNet's norms in one forward of the
+    panoramas ``rgbs_u8`` as one batch, fed as the e2e graph feeds it."""
     from panodepth_torch.models import norm as pnorm
     from panodepth_torch.ops.resize import resize_bilinear_nhwc
 
     dev = torch.device("cuda")
-    feed = resize_bilinear_nhwc(_pano_feed(rgb_u8, dev)[None], (256, 512))
+    feed = resize_bilinear_nhwc(
+        torch.stack([_pano_feed(r, dev) for r in rgbs_u8]), (256, 512))
     calls = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: calls.append((mod, args[0].contiguous().clone())))
@@ -537,10 +563,35 @@ def phase_groupnorm(base, rgb_u8):
     if len(calls) != GN_CALLS:
         raise AssertionError(f"FastPanoNet ran {len(calls)} norms, "
                              f"expected {GN_CALLS}")
+    return calls
+
+
+def phase_groupnorm(base, rgbs_u8):
+    """The kernel against its plain version on the inputs of FastPanoNet's
+    29 norms at a 256x512 input, at batch 1 (the CLI's) and at batch 2
+    (the e2e call's; each image also held bit-equal to itself alone), then
+    the 29-call set of batch 1 timed."""
+    import torch.nn.functional as F
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import norm as pnorm
+
+    dev = torch.device("cuda")
+    calls = _norm_inputs(base, rgbs_u8[:1])
     shapes = sorted({(int(x[0, 0].numel()), x.shape[1], m.num_groups)
                      for m, x in calls}, reverse=True)
     print(f"groupnorm: {len(calls)} calls per forward over {len(shapes)} "
           f"shapes (HW, C, G): {shapes}; inputs {calls[0][1].dtype}")
+    first = {}  # the first call of each shape
+    for m, x in calls:
+        first.setdefault((int(x[0, 0].numel()), x.shape[1], m.num_groups),
+                         (m, x))
+    for (hw, c, g), (_, x) in first.items():
+        for n in (1, 2):  # the CLI's batch and the e2e call's
+            p = kg.plan_for(n, c, hw, g, x.element_size())
+            print(f"groupnorm plan N={n} (HW, C, G)=({hw}, {c}, {g}): "
+                  f"clusters of {p.cluster}, {p.blocks} blocks, slice "
+                  f"{p.slice}, {p.smem_bytes} B shared"
+                  f"{' (opt-in)' if p.opt_in else ''}")
 
     def hold(label, x, scale, bias, groups, relu, out_dtype, flat=False):
         got = kg.cuda_group_norm(x, scale, bias, groups, 1e-6, relu, out_dtype)
@@ -586,6 +637,28 @@ def phase_groupnorm(base, rgb_u8):
                     line.append(f"{e:.2e}")
         print(f"groupnorm {key}: max abs err vs plain (bf16|f32 in x "
               f"relu off|on x f32|bf16 out): {' '.join(line)}")
+    # the e2e call's own inputs: both panoramas in one batch, so every plan
+    # the main path launches is held; and each image of the batch normalised
+    # alone gives the same bits (the plan does not depend on the batch)
+    calls2 = _norm_inputs(base, rgbs_u8[:2])
+    for m, x in calls2:
+        key = (int(x[0, 0].numel()), x.shape[1], m.num_groups)
+        err = hold(f"{key} batch {x.shape[0]} path", x, m.scale, m.bias,
+                   m.num_groups, m.fuse_relu, m.dtype)
+        max_abs = max(max_abs, err)
+        both = kg.cuda_group_norm(x, m.scale, m.bias, m.num_groups, 1e-6,
+                                  m.fuse_relu, m.dtype)
+        for i in range(x.shape[0]):
+            alone = kg.cuda_group_norm(x[i:i + 1].contiguous(), m.scale,
+                                       m.bias, m.num_groups, 1e-6,
+                                       m.fuse_relu, m.dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(both[i:i + 1], alone):
+                raise AssertionError(f"groupnorm {key}: image {i} of the "
+                                     f"batch differs from itself alone")
+    print(f"groupnorm: the {len(calls2)} calls of a batch-{len(rgbs_u8[:2])}"
+          f" forward (the e2e call's plans) agree with the plain version, "
+          f"each image bit-equal to itself at batch 1")
     rng = np.random.RandomState(SEED)
     odd = torch.tensor(rng.normal(0.3, 1.7, (3, 20, 7, 9)).astype(np.float32),
                        device=dev)
@@ -622,10 +695,23 @@ def phase_groupnorm(base, rgb_u8):
         for (m, _), x in zip(calls, xs32):
             F.group_norm(x, m.num_groups, m.scale, m.bias, 1e-6)
 
+    # device time per call of each shape's path call, and of a call that
+    # moves next to nothing: the per-launch floor
+    tiny = torch.zeros((1, 4, 1, 1), dtype=torch.bfloat16, device=dev)
+    per_shape = {}
+    for key, (m, x) in [("floor (1, 4, 1, 1) G4", (pnorm.GroupNorm(4, 4).to(
+            dev), tiny))] + list(first.items()):
+        busy, _ = _device_profile(lambda: [kg.cuda_group_norm(
+            x, m.scale, m.bias, m.num_groups, 1e-6, m.fuse_relu, m.dtype)
+            for _ in range(10)])
+        per_shape[str(key)] = busy / 10
+        print(f"groupnorm {key}: device {busy / 10 * 1e3!r} us per call "
+              f"(profiler, 10 calls)")
     k_ms = _median_ms(kernel_set, runs=7, warmup=2)
     p_ms = _median_ms(plain_set, runs=5, warmup=1)
     l_ms = _median_ms(library_set, runs=7, warmup=2)
     busy_ms, events = _device_profile(kernel_set)
+    lib_busy_ms, lib_events = _device_profile(library_set)
     elements = sum(x.numel() for _, x in calls)
     nbytes = sum(x.numel() * (x.element_size() + torch.empty(
         (), dtype=m.dtype).element_size()) for m, x in calls)
@@ -633,16 +719,19 @@ def phase_groupnorm(base, rgb_u8):
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_F32_FLOPS * 1e3
     summary = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                   device_ms=busy_ms, bound_ms=max(bytes_ms, ops_ms),
+                   device_ms=busy_ms, library_device_ms=lib_busy_ms,
+                   per_call_device_ms=per_shape,
+                   bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    max_abs_err=max_abs, elements=elements, bytes=nbytes,
                    calls=len(calls))
     print(f"groupnorm per forward ({len(calls)} calls, {elements} elements, "
           f"{nbytes} bytes): kernel {k_ms!r} ms (device busy {busy_ms!r} ms "
           f"under the profiler), plain {p_ms!r} ms, F.group_norm {l_ms!r} ms "
-          f"(CUDA events, median of 7 / 5 / 7), bound {summary['bound_ms']!r}"
-          f" ms ({summary['bound_by']})")
-    for ms, count, name in events[:4]:
+          f"(device busy {lib_busy_ms!r} ms under the profiler, on f32 "
+          f"copies of the inputs) (CUDA events, median of 7 / 5 / 7), bound "
+          f"{summary['bound_ms']!r} ms ({summary['bound_by']})")
+    for ms, count, name in events[:4] + lib_events[:4]:
         print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
     return summary
 
@@ -721,7 +810,7 @@ def phase_e2e(persp, base, rgbs_u8):
     rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
     full, models_stage, fuse_stage = build_batched_e2e(
         persp, cfg, view_width=256, base_model=base, base_w=512)
-    want_j = b * sum(kj.launches_for(it) for it in cfg.schedule)
+    want_j = b * sum(jacobi_launches(cfg))
     want_g = GN_CALLS * kg.launches_per_call()  # one forward of the batch
 
     kj.LAUNCHES = kg.LAUNCHES = 0
@@ -798,6 +887,10 @@ def phase_e2e(persp, base, rgbs_u8):
               f"(ms, calls):")
         for ms, count, name in events[:14]:
             print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
+        print("e2e profile, the port's own kernels (ms, launches):")
+        for ms, count, name in events:
+            if "jacobi_tile" in name or "gn_cluster" in name:
+                print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
     else:
         print("e2e profile: the profiler saw no device time (not measured)")
     return dict(single0=single[0].cpu().numpy(), bases=bases.cpu().numpy(),
@@ -815,7 +908,7 @@ def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
 
     names = [f"pano_{i:04d}" for i in range(len(rgbs_u8))]
     # the CLI's defaults: 5fold_leres at 2048
-    per_pano = sum(kj.launches_for(it) for it in MergeConfig().schedule)
+    per_pano = sum(jacobi_launches(MergeConfig()))
     gn_per_forward = GN_CALLS * kg.launches_per_call()
     with tempfile.TemporaryDirectory(prefix="panodepth_smoke_e2e_") as root:
         d = {k: os.path.join(root, k) for k in
@@ -889,7 +982,8 @@ def main():
     with Phase("build"):
         phase_build()
     with Phase("kernel"):
-        jac = phase_kernel(cfg)
+        jac = phase_kernel(cfg, MergeConfig(layout_name="5fold_leres",
+                                            out_width=4096))
     with Phase("merge"):
         scenes = [make_scene(cfg, SEED + i) for i in range(2)]
         merged0, merge_launches, warm_ms = phase_merge(cfg, scenes[0])
@@ -899,7 +993,7 @@ def main():
         persp, _ = load_model_checkpoint(PERSP_CKPT)
         base, _ = load_model_checkpoint(BASE_CKPT)
         rgbs = [make_rgb(SEED + i, 2048) for i in range(2)]
-        gn = phase_groupnorm(base, rgbs[0])
+        gn = phase_groupnorm(base, rgbs)
     with Phase("models"):
         models = phase_models(persp, base, rgbs[0])
     with Phase("e2e"):
@@ -922,7 +1016,8 @@ def main():
         launches=e2e["launches"]["group_norm"], max_abs_err=gn["max_abs_err"],
         ms=gn["ms"], plain_ms=gn["plain_ms"], bound_ms=gn["bound_ms"],
         bound_by=gn["bound_by"], library_ms=gn["library_ms"],
-        device_ms=gn["device_ms"], calls_per_forward=gn["calls"],
+        device_ms=gn["device_ms"], library_device_ms=gn["library_device_ms"],
+        calls_per_forward=gn["calls"],
         launches_by_path=dict(e2e=e2e["launches"]["group_norm"]))]
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "

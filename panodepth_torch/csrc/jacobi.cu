@@ -26,35 +26,45 @@
 // What bounds it on an H100 SXM (67 TFLOP/s f32 outside the tensor cores,
 // 3.35 TB/s): one 2048-wide panorama is 200/100/50 iterations over
 // 512x256, 1024x512 and 2048x1024, 183.5 M pixel-iterations at 14 f32
-// operations per covered pixel, ~1.8 GFLOP or ~27 us for the production
-// coverage; the least bytes are each level's arrays once, ~36 MB or ~11 us.
-// So the function is bound by operations.  A first form with one launch
-// per iteration (350 per panorama) was held by the launch rate, not by
-// either bound.  This form does kSteps iterations per launch (temporal
-// blocking): a block loads a kWinH x kWinW window (the kTileH x kTileW
-// interior plus a kSteps-deep halo) into shared memory, relaxes it kSteps
-// times while the valid region shrinks by one ring per iteration, and
-// writes the interior.  The window is gathered by flat index modulo N, so
-// a window neighbour one column or one row away is exactly the flat tap
-// i +- 1 or i +- W, the seam wrap included, and the tiled result equals
-// the plain one bit for bit.
+// operations per covered pixel, ~1.8 GFLOP or ~27 us; the least bytes are
+// each level's arrays once, ~36 MB or ~11 us.  So it is bound by
+// operations.  Since no FMA may be contracted, a cell-iteration takes ~15
+// issue slots (11 f32 adds and multiplies, the clamp folded into the last
+// add as a saturation, the coverage test and select, the edge exchange),
+// ~90 us a panorama at the card's f32 issue rate even with no halo.
+//
+// The design (temporal blocking in registers): a block relaxes a window of
+// 32*C columns by W*R rows, `halo` iterations per launch, and writes the
+// window's interior (the window less `halo` cells on every side).  Each
+// warp owns a strip of R consecutive window rows across all 32*C columns;
+// lane l holds the micro-tile of columns l*C .. l*C+C-1 of those rows, with
+// B, the target and the coverage bits in registers.  So the vertical taps
+// inside a micro-tile and the horizontal taps inside a lane are register
+// reads; the left and right taps at a lane's edge come from its neighbours
+// by warp shuffle (2 per row), and the rows above and below a warp's strip
+// through a small double-buffered shared-memory edge buffer (2*C stores and
+// 2*C loads per thread), with one barrier per iteration.  Cells of the
+// window's outer ring take garbage taps (a shuffle past lane 31, a warp's
+// own edge at the top and bottom); the garbage moves in one cell per
+// iteration and never reaches the interior in `halo` iterations, and a
+// strip that no later iteration needs skips its arithmetic.  The window is
+// gathered by flat index modulo N, so a window neighbour one column or one
+// row away is exactly the flat tap i +- 1 or i +- W, the seam wrap
+// included, and the tiled result equals the plain one bit for bit.  The
+// launch plan (C, R, W and `halo`, so the window and the grid) is chosen
+// per level by kernels/jacobi.py::plan_for: 128x128 windows 16 iterations
+// deep where the level is large (the halo recomputed ~1.8x the interior),
+// more and smaller blocks where it is small and the card would idle.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-// A block relaxes a kWinH x kWinW window and writes its kTileH x kTileW
-// interior.  Threads form a kWinW x kRowsPerPass grid: thread (tx, ty) owns
-// window column tx and rows ty, ty + kRowsPerPass, ..., so a warp reads 32
-// consecutive floats of one row (no bank conflicts, no index division).
-constexpr int kSteps = 8;                    // iterations per launch = halo
-constexpr int kWinW = 64;
-constexpr int kWinH = 56;
-constexpr int kTileW = kWinW - 2 * kSteps;   // 48
-constexpr int kTileH = kWinH - 2 * kSteps;   // 40
-constexpr int kRowsPerPass = 4;
-constexpr int kThreads = kWinW * kRowsPerPass;
+// up to 1024 threads a block: the 2x4 and 4x4 micro-tiles keep a thread
+// within 64 registers, so a whole block fits an SM's register file
+constexpr int kMaxWarps = 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float relax(float c, float l, float r, float u,
                                        float d, float t, float step,
@@ -66,102 +76,180 @@ __device__ __forceinline__ float relax(float c, float l, float r, float u,
   return fminf(fmaxf(upd, 0.0f), 1.0f);
 }
 
-// `steps` (1..kSteps) iterations of one window; writes its interior.
-// Needs (h + 64) * w < 2^31 (checked by the caller).
-__global__ void __launch_bounds__(kThreads)
-jacobi_window(const float* __restrict__ src, float* __restrict__ dst,
-              const float* __restrict__ tgt, const uint8_t* __restrict__ cov,
-              int h, int w, int steps, float step, float one_minus_reg,
-              float reg) {
-  __shared__ float win[2][kWinH][kWinW];
-  __shared__ float t[kWinH][kWinW];
-  __shared__ uint8_t c[kWinH][kWinW];
-  __shared__ int row_base[kWinH];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
+// bit ? a : b as one predicated select: left to itself nvcc turns the
+// coverage test into a divergent branch around relax() per cell (5 more
+// issue slots a cell, and the lanes of a warp split on mixed coverage)
+__device__ __forceinline__ float pick(unsigned bit, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.u32 p, %1, 0;\n\t"
+      "selp.f32 %0, %2, %3, p;\n\t}"
+      : "=f"(r)
+      : "r"(bit), "f"(a), "f"(b));
+  return r;
+}
+
+// `steps` (1..halo) iterations of one (32*C) x (warps*R) window; writes its
+// interior.  Dynamic shared memory: the edge buffer, 2 buffers x (top,
+// bottom) x warps x C x 32 floats.  Needs (h + warps*R + 1) * w < 2^31
+// (checked by the caller).
+template <int C, int R>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+jacobi_tile(const float* __restrict__ src, float* __restrict__ dst,
+            const float* __restrict__ tgt, const uint8_t* __restrict__ cov,
+            int h, int w, int halo, int steps, float step,
+            float one_minus_reg, float reg) {
+  extern __shared__ float edge[];
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int win_w = 32 * C, win_h = warps * R;
   const int n = h * w;
-  const int y0 = blockIdx.y * kTileH - kSteps;
-  const int x0 = blockIdx.x * kTileW - kSteps;
-  // flat index of each window row's first element, modulo n
-  const int tid = ty * kWinW + tx;
-  if (tid < kWinH) {
-    int f = ((y0 + tid) * w + x0) % n;
-    row_base[tid] = f < 0 ? f + n : f;
+  const int y0 = blockIdx.y * (win_h - 2 * halo) - halo;
+  const int x0 = blockIdx.x * (win_w - 2 * halo) - halo;
+  const int lx0 = lane * C, ly0 = g * R;
+
+  float b[R][C], t[R][C];
+  unsigned m = 0;  // coverage bit r*C + k
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    int f = ((y0 + ly0 + r) * w + x0 + lx0) % n;
+    if (f < 0) f += n;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      int fk = f + k;
+      while (fk >= n) fk -= n;
+      b[r][k] = src[fk];
+      t[r][k] = tgt[fk];
+      m |= static_cast<unsigned>(cov[fk] != 0) << (r * C + k);
+    }
   }
-  __syncthreads();
-  for (int ly = ty; ly < kWinH; ly += kRowsPerPass) {
-    int f = row_base[ly] + tx;
-    while (f >= n) f -= n;
-    win[0][ly][tx] = src[f];
-    t[ly][tx] = tgt[f];
-    c[ly][tx] = cov[f];
-  }
-  __syncthreads();
-  int cur = 0;
-  for (int s = 1; s <= steps; ++s) {
-    // after s-1 iterations the window is valid on [s-1, kWin - s + 1);
-    // iteration s updates [s, kWin - s), whose taps all lie inside that
-    const float(*a)[kWinW] = win[cur];
-    float(*b)[kWinW] = win[cur ^ 1];
-    if (tx >= s && tx < kWinW - s) {
-      for (int ly = ty; ly < kWinH - s; ly += kRowsPerPass) {
-        if (ly < s) continue;
-        const float ci = a[ly][tx];
-        b[ly][tx] = c[ly][tx]
-                        ? relax(ci, a[ly][tx - 1], a[ly][tx + 1],
-                                a[ly - 1][tx], a[ly + 1][tx], t[ly][tx], step,
-                                one_minus_reg, reg)
-                        : ci;
-      }
+
+  const int plane = warps * C * 32;  // floats per buffer and side
+  const int gu = g > 0 ? g - 1 : g;
+  const int gd = g < warps - 1 ? g + 1 : g;
+  for (int s = 0; s < steps; ++s) {
+    float* top = edge + (s & 1) * 2 * plane;
+    float* bot = top + plane;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      top[(g * C + k) * 32 + lane] = b[0][k];
+      bot[(g * C + k) * 32 + lane] = b[R - 1][k];
     }
     __syncthreads();
-    cur ^= 1;
+    float prev[C], dn[C];
+    // after iteration s + 1 only rows [s + 1, win_h - s - 1) are still
+    // needed; a strip wholly outside them skips its arithmetic (it goes on
+    // publishing its edges, which its live neighbours do not read)
+    if (ly0 + R <= s + 1 || ly0 >= win_h - s - 1) continue;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      prev[k] = bot[(gu * C + k) * 32 + lane];
+      dn[k] = top[(gd * C + k) * 32 + lane];
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float lin = __shfl_up_sync(kFull, b[r][C - 1], 1);
+      const float rin = __shfl_down_sync(kFull, b[r][0], 1);
+      float nb[C];
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const float l = k > 0 ? b[r][k - 1] : lin;
+        const float rr = k < C - 1 ? b[r][k + 1] : rin;
+        const float d = r < R - 1 ? b[r + 1][k] : dn[k];
+        nb[k] = pick(m & (1u << (r * C + k)),
+                     relax(b[r][k], l, rr, prev[k], d, t[r][k], step,
+                           one_minus_reg, reg),
+                     b[r][k]);
+      }
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        prev[k] = b[r][k];
+        b[r][k] = nb[k];
+      }
+    }
   }
-  const int gx = x0 + tx;
-  if (tx >= kSteps && tx < kSteps + kTileW && gx < w) {
-    for (int ly = kSteps + ty; ly < kSteps + kTileH; ly += kRowsPerPass) {
-      const int gy = y0 + ly;
-      if (gy < h) dst[gy * w + gx] = win[cur][ly][tx];
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int ly = ly0 + r, gy = y0 + ly;
+    if (ly < halo || ly >= win_h - halo || gy >= h) continue;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int lx = lx0 + k, gx = x0 + lx;
+      if (lx >= halo && lx < win_w - halo && gx < w) dst[gy * w + gx] = b[r][k];
     }
   }
 }
 
-}  // namespace
-
-extern "C" int panodepth_jacobi_steps_per_launch() { return kSteps; }
-
-// Runs `iterations` iterations on `stream` in ceil(iterations / kSteps)
-// launches.  Launch j reads the previous result (`buf` for j = 0) and writes
-// `out` or `scratch`, alternating so that the last one writes `out`;
-// `scratch` is unused for a single launch.  `step` and `reg` come in as
-// doubles and are rounded to float here, as PyTorch rounds a Python scalar,
-// with 1 - reg formed in double first.  Returns the first CUDA error (0 on
-// success).
-extern "C" int panodepth_jacobi(const float* buf, float* out, float* scratch,
-                                const float* target, const uint8_t* covered,
-                                int h, int w, int iterations, double step,
-                                double reg, void* stream) {
-  const float f_step = static_cast<float>(step);
-  const float f_omr = static_cast<float>(1.0 - reg);
-  const float f_reg = static_cast<float>(reg);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
-  const dim3 block(kWinW, kRowsPerPass);
-  const int launches = (iterations + kSteps - 1) / kSteps;
+template <int C, int R>
+int run(const float* buf, float* out, float* scratch, const float* target,
+        const uint8_t* covered, int h, int w, int iterations, float step,
+        float omr, float reg, int warps, int halo, int smem, int opt_in,
+        cudaStream_t s) {
+  const int win_w = 32 * C, win_h = warps * R;
+  const dim3 grid((w + win_w - 2 * halo - 1) / (win_w - 2 * halo),
+                  (h + win_h - 2 * halo - 1) / (win_h - 2 * halo));
+  // the plan's byte count must hold the edge buffer
+  if (smem < 0 ||
+      static_cast<size_t>(smem) < sizeof(float) * 4 * warps * C * 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (opt_in) {  // above the default 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_tile<C, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int launches = (iterations + halo - 1) / halo;
   const float* src = buf;
   int done = 0;
   for (int j = 0; j < launches; ++j) {
-    const int steps =
-        iterations - done < kSteps ? iterations - done : kSteps;
+    const int steps = iterations - done < halo ? iterations - done : halo;
     float* dst = ((launches - 1 - j) % 2 == 0) ? out : scratch;
-    jacobi_window<<<grid, block, 0, s>>>(src, dst, target, covered, h, w,
-                                         steps, f_step, f_omr, f_reg);
+    jacobi_tile<C, R><<<grid, warps * 32, smem, s>>>(
+        src, dst, target, covered, h, w, halo, steps, step, omr, reg);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     src = dst;
     done += steps;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Runs `iterations` iterations on `stream` with the launch plan (cols C,
+// rows R, warps W, halo): ceil(iterations / halo) launches of the
+// (32*C) x (W*R) window, `halo` iterations each and the rest in the last,
+// each with `smem` bytes of dynamic shared memory (kernels/jacobi.py,
+// JacobiPlan.smem_bytes), granted first with `opt_in` above 48 KB.
+// Launch j reads the previous result (`buf` for j = 0) and writes `out` or
+// `scratch`, alternating so that the last one writes `out`; `scratch` is
+// unused for a single launch.  `step` and `reg` come in as doubles and are
+// rounded to float here, as PyTorch rounds a Python scalar, with 1 - reg
+// formed in double first.  Returns the first CUDA error (0 on success;
+// cudaErrorInvalidValue for a plan this library has no kernel for, or
+// whose `smem` does not hold the edge buffer).
+extern "C" int panodepth_jacobi(const float* buf, float* out, float* scratch,
+                                const float* target, const uint8_t* covered,
+                                int h, int w, int iterations, double step,
+                                double reg, int cols, int rows, int warps,
+                                int halo, int smem, int opt_in,
+                                void* stream) {
+  const float f_step = static_cast<float>(step);
+  const float f_omr = static_cast<float>(1.0 - reg);
+  const float f_reg = static_cast<float>(reg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (warps < 1 || warps > kMaxWarps || halo < 1 || iterations < 1 ||
+      32 * cols <= 2 * halo || warps * rows <= 2 * halo)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define PANODEPTH_JACOBI_PLAN(C, R)                                          \
+  if (cols == C && rows == R)                                                \
+    return run<C, R>(buf, out, scratch, target, covered, h, w, iterations,   \
+                     f_step, f_omr, f_reg, warps, halo, smem, opt_in, s);
+  PANODEPTH_JACOBI_PLAN(2, 4)
+  PANODEPTH_JACOBI_PLAN(4, 4)
+#undef PANODEPTH_JACOBI_PLAN
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* panodepth_cuda_error_string(int err) {

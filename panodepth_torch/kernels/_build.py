@@ -34,8 +34,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# nvcc's output (ptxas register and shared-memory lines) of this process's builds
-BUILD_LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -78,15 +76,22 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.monotonic() - t0
-        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"nvcc failed on csrc/{name}.cu "
                           f"(exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas's registers, shared memory and spills per
+    kernel) from the build of the current ``csrc/<name>.cu``."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.is_file() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

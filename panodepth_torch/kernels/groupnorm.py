@@ -20,10 +20,11 @@ always the twin.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
-# kernel launches made by cuda_group_norm in this process (two per call)
+# kernel launches made by cuda_group_norm in this process (one per call)
 LAUNCHES = 0
 
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -61,16 +62,13 @@ def _library():
         lib = _build.load("groupnorm")
         lib.panodepth_group_norm.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
-            ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-            ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+            ctypes.c_double] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.panodepth_group_norm.restype = ctypes.c_int
-        for name in ("panodepth_group_norm_chunk",
-                     "panodepth_group_norm_launches_per_call"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.panodepth_group_norm_launches_per_call.argtypes = []
+        lib.panodepth_group_norm_launches_per_call.restype = ctypes.c_int
         lib.panodepth_group_norm_error_string.argtypes = [ctypes.c_int]
         lib.panodepth_group_norm_error_string.restype = ctypes.c_char_p
-        lib.chunk = lib.panodepth_group_norm_chunk()
         lib.launches_per_call = lib.panodepth_group_norm_launches_per_call()
         _LIB = lib
     return _LIB
@@ -79,6 +77,97 @@ def _library():
 def launches_per_call() -> int:
     """Kernel launches per :func:`cuda_group_norm` call; builds the library."""
     return _library().launches_per_call
+
+
+SMS = 132                 # the H100 SXM's streaming multiprocessors
+MAX_CLUSTER = 16          # 8 is portable; 16 with the non-portable opt-in
+MIN_SLICE = 3072          # elements a block gets before a span is split
+VEC = 8                   # elements per vector access (16 bytes of bf16)
+SMEM_MAX = 232448         # a block's shared memory on sm_90
+SMEM_STATIC = 1024        # kept for the kernel's own __shared__ variables
+SMEM_DEFAULT = 48 * 1024 - SMEM_STATIC  # dynamic bytes without the opt-in
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupNormPlan:
+    """How ``csrc/groupnorm.cu`` covers one call: ``n * groups`` clusters
+    of ``cluster`` blocks, block k of a cluster owning elements
+    ``[k*slice, (k+1)*slice)`` of its (image, group) span, kept in shared
+    memory if ``staged``."""
+
+    n: int
+    channels: int
+    hw: int
+    groups: int
+    in_bytes: int
+    cluster: int
+    slice: int
+    staged: bool
+
+    @property
+    def span(self) -> int:
+        return self.channels // self.groups * self.hw
+
+    @property
+    def blocks(self) -> int:
+        return self.n * self.groups * self.cluster
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory per block, what the kernel is launched
+        with: the slice and one vector of alignment slack."""
+        return self.in_bytes * (self.slice + VEC) if self.staged else 0
+
+    @property
+    def opt_in(self) -> bool:
+        """Above the default 48 KB (less the kernel's own variables) the
+        launch raises the kernel's dynamic shared-memory limit."""
+        return self.smem_bytes > SMEM_DEFAULT
+
+    def slices(self, image: int, group: int):
+        """(start, end) element offsets in ``x`` of each block's slice of
+        one span, in rank order (empty slices included)."""
+        base = (image * self.groups + group) * self.span
+        return [(base + min(k * self.slice, self.span),
+                 base + min((k + 1) * self.slice, self.span))
+                for k in range(self.cluster)]
+
+
+def slice_for(span: int, cluster: int) -> int:
+    """Elements per block: a multiple of VEC, so that slices start aligned."""
+    per_block = -(-span // cluster)
+    return max(VEC, -(-per_block // VEC) * VEC)
+
+
+def plan_for(n: int, channels: int, hw: int, groups: int,
+             in_bytes: int) -> GroupNormPlan:
+    """The launch plan of one call (pure; the CPU tests check it).
+
+    The cluster size K is the least power of two that puts ``groups * K``
+    blocks, one image's, on the 132 SMs, at most 16 and while a slice keeps
+    at least MIN_SLICE elements; then doubled further (to 16) while the
+    slice does not fit in shared memory.  A slice that does not fit at
+    K = 16 is not staged (read twice).  K does not depend on ``n``: the
+    slices, and so the f32 sum order of every (image, group), are the same
+    at any batch, and an image normalises to the same bits at batch 1 (the
+    CLI) and batch 2 (the e2e call) wherever its C*HW is a multiple of 8,
+    as at every FastPanoNet shape (the kernel's vector runs start at
+    16-byte addresses).  MIN_SLICE is measured (``scripts/
+    torch_kernel_ab.py --sweep``, PERF.md): a cluster's barriers add ~0.9
+    us to a call (floor 3.56 us against 2.64 us for a lone block), more
+    than splitting a span of a few thousand elements saves.
+    """
+    span = channels // groups * hw
+    fits = lambda k: in_bytes * (slice_for(span, k) + VEC) <= \
+        SMEM_MAX - SMEM_STATIC
+    k = 1
+    while (k < MAX_CLUSTER and groups * k < SMS
+           and span // (2 * k) >= MIN_SLICE):
+        k *= 2
+    while k < MAX_CLUSTER and not fits(k):
+        k *= 2
+    return GroupNormPlan(int(n), int(channels), int(hw), int(groups),
+                         int(in_bytes), k, slice_for(span, k), fits(k))
 
 
 def _check(x, scale, bias, num_groups, out_dtype):
@@ -107,35 +196,49 @@ def _check(x, scale, bias, num_groups, out_dtype):
         raise ValueError(f"cuda_group_norm: {num_groups} groups do not "
                          f"divide {c} channels")
     if x.numel() >= 2 ** 31:
-        raise ValueError("cuda_group_norm: the kernel's channel index is "
+        raise ValueError("cuda_group_norm: the kernel's element index is "
                          "32-bit; x is too large")
 
 
 def cuda_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-6,
                     relu: bool = False, out_dtype=torch.float32):
-    """The CUDA kernel ``csrc/groupnorm.cu``: two launches per call.
+    """The CUDA kernel ``csrc/groupnorm.cu``: one launch per call
+    (:func:`plan_for`).
 
     ``x`` is a contiguous (N, C, ...) bf16 or f32 CUDA tensor, ``scale``
     and ``bias`` f32 (C,).  Returns a new ``out_dtype`` tensor.  Runs on
-    the current stream and does not synchronise.
+    the current stream and does not synchronise.  The kernel has no
+    backward: under grad mode a tensor that requires grad is refused.
     """
-    global LAUNCHES
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, scale, bias)):
+        raise RuntimeError("cuda_group_norm has no backward: call it under "
+                           "torch.no_grad() or inference_mode(), or take the "
+                           "'torch' route to train")
     num_groups = int(num_groups)
     _check(x, scale, bias, num_groups, out_dtype)
     n, c = x.shape[:2]
     hw = x.numel() // max(n * c, 1)
+    plan = plan_for(n, c, hw, num_groups, x.element_size())
+    return run_plan(x, scale, bias, eps, relu, out_dtype, plan)
+
+
+def run_plan(x, scale, bias, eps, relu, out_dtype, plan: GroupNormPlan):
+    """Launch the kernel with ``plan`` (checked arguments; also what
+    ``scripts/torch_kernel_ab.py`` times other cluster sizes with)."""
+    global LAUNCHES
     lib = _library()
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return y
-    chunks = -(-(c // num_groups) * hw // lib.chunk)
-    partials = torch.empty(n * num_groups * chunks * 2, dtype=torch.float32,
-                           device=x.device)
     err = lib.panodepth_group_norm(
         x.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
-        int(out_dtype == torch.bfloat16), partials.data_ptr(),
-        scale.data_ptr(), bias.data_ptr(), n, c, hw, num_groups, float(eps),
-        int(bool(relu)), torch.cuda.current_stream(x.device).cuda_stream)
+        int(out_dtype == torch.bfloat16), scale.data_ptr(), bias.data_ptr(),
+        plan.n, plan.channels, plan.hw, plan.groups, float(eps),
+        int(bool(relu)), plan.cluster, plan.slice, int(plan.staged),
+        plan.smem_bytes, int(plan.opt_in),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         msg = lib.panodepth_group_norm_error_string(err).decode()
         raise RuntimeError(f"groupnorm kernel launch failed: {msg} ({err})")

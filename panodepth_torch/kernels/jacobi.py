@@ -15,6 +15,7 @@ raises on a CPU tensor), ``torch`` always the twin.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -59,20 +60,104 @@ def _library():
     fn = lib.panodepth_jacobi
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+            ctypes.c_double, ctypes.c_double] + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.panodepth_jacobi_steps_per_launch.argtypes = []
-        lib.panodepth_jacobi_steps_per_launch.restype = ctypes.c_int
         lib.panodepth_cuda_error_string.argtypes = [ctypes.c_int]
         lib.panodepth_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launches_for(iterations: int) -> int:
-    """Kernel launches that :func:`cuda_jacobi` makes for ``iterations``
-    (the kernel does several iterations per launch); builds the library."""
-    per_launch = _library().panodepth_jacobi_steps_per_launch()
-    return -(-int(iterations) // per_launch)
+# (cols, rows) micro-tiles csrc/jacobi.cu has a kernel for, and the most
+# warps a block may have (its launch bounds: 1024 threads)
+TILES = ((2, 4), (4, 4))
+MAX_WARPS = 32
+SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without opting in
+
+
+@dataclasses.dataclass(frozen=True)
+class JacobiPlan:
+    """How ``csrc/jacobi.cu`` covers one (h, w) level.
+
+    A block relaxes a window of ``32 * cols`` columns by ``warps * rows``
+    rows ``halo`` iterations per launch (the last launch the rest) and
+    writes the window less ``halo`` cells on every side: the tile.  Lane l
+    of warp g holds rows ``g*rows ..`` and columns ``l*cols ..`` of it.
+    """
+
+    h: int
+    w: int
+    iterations: int
+    cols: int
+    rows: int
+    warps: int
+    halo: int
+
+    @property
+    def window(self):
+        return self.warps * self.rows, 32 * self.cols
+
+    @property
+    def tile(self):
+        wh, ww = self.window
+        return wh - 2 * self.halo, ww - 2 * self.halo
+
+    @property
+    def grid(self):
+        th, tw = self.tile
+        return -(-self.w // tw), -(-self.h // th)
+
+    @property
+    def blocks(self) -> int:
+        gx, gy = self.grid
+        return gx * gy
+
+    @property
+    def launches(self) -> int:
+        return -(-self.iterations // self.halo)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory per block, what the kernel is launched
+        with: the edge buffer, 2 buffers x (top, bottom) rows of every
+        warp."""
+        return 4 * 4 * self.warps * 32 * self.cols
+
+    @property
+    def opt_in(self) -> bool:
+        """Above the default 48 KB the launch raises the kernel's dynamic
+        shared-memory limit."""
+        return self.smem_bytes > SMEM_DEFAULT
+
+
+def plan_for(h: int, w: int, iterations: int) -> JacobiPlan:
+    """The launch plan of one level (pure; the CPU tests check it).
+
+    From the per-level sweep of ``scripts/torch_kernel_ab.py --sweep`` on
+    an H100 (PERF.md): the 512x256 level is latency-bound (131,072 pixels
+    over 132 SMs), best as 64x64 windows of 2x4 micro-tiles, 16 warps and
+    16 iterations per launch: 128 blocks of 16 warps.  At 1024x512, 64x128
+    windows of 2x4 micro-tiles, 32 warps, 12 iterations per launch: 130
+    blocks of 32 warps.  The large levels are throughput-bound: 128x128
+    windows of 4x4 micro-tiles, 32 warps, 16 iterations per launch (the
+    halo recomputed ~1.8x the interior, 4 launches at 50 iterations; the
+    edge buffer takes 64 KB, so these blocks opt in).  ``halo`` never
+    exceeds ``iterations``.
+    """
+    if h * w <= 512 * 256:
+        cols, rows, warps, halo = 2, 4, 16, 16
+    elif h * w <= 1024 * 512:
+        cols, rows, warps, halo = 2, 4, 32, 12
+    else:
+        cols, rows, warps, halo = 4, 4, 32, 16
+    return JacobiPlan(int(h), int(w), int(iterations), cols, rows, warps,
+                      max(1, min(halo, int(iterations))))
+
+
+def launches_for(h: int, w: int, iterations: int) -> int:
+    """Kernel launches that :func:`cuda_jacobi` makes for ``iterations`` at
+    an (h, w) level."""
+    return plan_for(h, w, iterations).launches
 
 
 def _check(buf, target, covered):
@@ -96,38 +181,47 @@ def _check(buf, target, covered):
 
 
 def cuda_jacobi(buf, target, covered, iterations, step, reg):
-    """The CUDA kernel ``csrc/jacobi.cu``, several iterations per launch.
+    """The CUDA kernel ``csrc/jacobi.cu``, several iterations per launch
+    (:func:`plan_for`).
 
     ``buf``/``target`` are contiguous f32 (H, W) CUDA tensors, ``covered`` a
     bool mask of the same shape.  Returns a new tensor; ``buf`` is not
     written.  Runs on the current stream and does not synchronise.
     """
-    global LAUNCHES
     _check(buf, target, covered)
     iterations = int(iterations)
     if iterations < 0:
         raise ValueError(f"cuda_jacobi: iterations must be >= 0, "
                          f"got {iterations}")
-    h, w = buf.shape
-    if (h + 64) * w >= 2 ** 31:  # the kernel's window indices are 32-bit
-        raise ValueError(f"cuda_jacobi: {h}x{w} exceeds 32-bit indexing")
     if iterations == 0:
         return buf.clone()
+    h, w = buf.shape
+    return run_plan(buf, target, covered, step, reg, plan_for(h, w, iterations))
+
+
+def run_plan(buf, target, covered, step, reg, plan: JacobiPlan):
+    """Launch the kernel with ``plan`` (checked arguments; also what
+    ``scripts/torch_kernel_ab.py`` times other plans with)."""
+    global LAUNCHES
+    h, w = plan.h, plan.w
+    # the kernel's window indices are 32-bit
+    if (h + plan.window[0] + 1) * w >= 2 ** 31:
+        raise ValueError(f"cuda_jacobi: {h}x{w} exceeds 32-bit indexing")
     lib = _library()
-    launches = launches_for(iterations)
     with torch.cuda.device(buf.device):
         out = torch.empty_like(buf)
-        scratch = torch.empty_like(buf) if launches > 1 else out
+        scratch = torch.empty_like(buf) if plan.launches > 1 else out
         cov = covered.view(torch.uint8)
         stream = torch.cuda.current_stream(buf.device).cuda_stream
         err = lib.panodepth_jacobi(
             buf.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            target.data_ptr(), cov.data_ptr(), h, w, iterations,
-            float(step), float(reg), stream)
+            target.data_ptr(), cov.data_ptr(), h, w, plan.iterations,
+            float(step), float(reg), plan.cols, plan.rows, plan.warps,
+            plan.halo, plan.smem_bytes, int(plan.opt_in), stream)
     if err != 0:
         msg = lib.panodepth_cuda_error_string(err).decode()
         raise RuntimeError(f"jacobi kernel launch failed: {msg} ({err})")
-    LAUNCHES += launches
+    LAUNCHES += plan.launches
     return out
 
 

@@ -1,0 +1,265 @@
+#!/usr/bin/env python3
+"""A/B of the port's CUDA kernels against an earlier form, on one card.
+
+    python3 scripts/torch_kernel_ab.py [--old-tree DIR] [--sweep] [--sass]
+
+``DIR`` holds an earlier checkout of the repo, or at least its
+``panodepth_torch/kernels/`` and ``panodepth_torch/csrc/`` (for example
+``git archive <commit> panodepth_torch | tar -x -C DIR``).  Its kernels are
+called through that checkout's own wrappers (``cuda_jacobi`` and
+``cuda_group_norm``, whose signatures the port keeps), which build its
+sources with its own flags into ``DIR``, so the script depends on no
+earlier C interface.  It times, in turns old, new, new, old:
+
+- the Jacobi, per level of the 2048-wide plan at the plan's coverage:
+  CUDA events around one level (median of 9) and the kernels' device time
+  under torch.profiler, with the outputs of both forms held bit-equal to
+  each other and to the plain version, and the launches each wrapper
+  counted;
+- the GroupNorm, per FastPanoNet forward: its 29 calls on the inputs the
+  zoo net gives them at 256x512 (the inputs of ``chip_smoke.py``'s phase
+  groupnorm), device time under torch.profiler over 5 forwards.
+
+``--sweep`` times other Jacobi launch plans at each level and other
+GroupNorm cluster sizes at each FastPanoNet shape (device time under the
+profiler, through ``run_plan``), the evidence behind the two ``plan_for``
+functions.  ``--sass`` prints each kernel's SASS opcode counts
+(``cuobjdump`` beside nvcc).  It needs one CUDA card and nvcc; it prints
+the card's name and power limit and, last, one JSON line of the numbers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402  (its scene, feed and profiler helpers)
+
+# candidate Jacobi plans (cols, rows, warps, halo) for --sweep
+SWEEP = ((2, 4, 16, 16), (2, 4, 8, 8), (2, 4, 16, 12), (2, 4, 16, 20),
+         (2, 4, 32, 12), (2, 4, 32, 16), (2, 4, 32, 20), (4, 4, 16, 16),
+         (4, 4, 32, 12), (4, 4, 32, 16), (4, 4, 32, 20))
+
+
+def load_old_kernels(tree):
+    """The wrapper modules (jacobi, groupnorm) of the earlier checkout at
+    ``tree``, imported as a package of their own beside the port's."""
+    import importlib
+    import importlib.util
+
+    pkg_dir = os.path.join(tree, "panodepth_torch", "kernels")
+    name = "_old_panodepth_torch_kernels"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg_dir, "__init__.py"),
+        submodule_search_locations=[pkg_dir])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return (importlib.import_module(f"{name}.jacobi"),
+            importlib.import_module(f"{name}.groupnorm"))
+
+
+def launches(module, fn):
+    """Kernel launches that ``module``'s wrapper counted for one ``fn()``."""
+    before = module.LAUNCHES
+    fn()
+    return module.LAUNCHES - before
+
+
+def device_ms(fn, repeat):
+    """Device time per call of ``fn`` under torch.profiler."""
+    busy, _ = chip_smoke._device_profile(lambda: [fn() for _ in range(repeat)])
+    return busy / repeat
+
+
+def in_turns(forms, timer, rounds):
+    """{form: [times]}: ``timer(fn)`` of each form in turns old, new, new,
+    old (new alone without an old form)."""
+    order = ("old", "new", "new", "old") if "old" in forms else ("new",)
+    turns = [(name, timer(forms[name])) for _ in range(rounds)
+             for name in order]
+    return {n: [t for m, t in turns if m == n] for n in forms}
+
+
+def jacobi_ab(old_kj, cfg, rounds, sweep):
+    from panodepth_torch.fusion import build_fusion_plan
+    from panodepth_torch.kernels import jacobi as kj
+
+    rng = np.random.RandomState(chip_smoke.SEED)
+    step, reg = cfg.jacobi_step, cfg.jacobi_reg
+    mods = dict(new=kj, **({"old": old_kj} if old_kj else {}))
+    levels = []
+    for lvl in build_fusion_plan(cfg).levels:
+        h, w, it = lvl.height, lvl.width, lvl.iterations
+        buf = torch.tensor(rng.rand(h, w).astype(np.float32), device="cuda")
+        tgt = torch.tensor(rng.normal(0, 0.01, (h, w)).astype(np.float32),
+                           device="cuda")
+        cov = torch.tensor(lvl.inv_cov > 0, device="cuda")
+        forms = {name: (lambda m=m: m.cuda_jacobi(buf, tgt, cov, it, step,
+                                                  reg))
+                 for name, m in mods.items()}
+        want = kj.jacobi_plain(buf, tgt, cov, it, step, reg)
+        for name, fn in forms.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{name} jacobi not bit-equal at {w}x{h}")
+        row = dict(shape=f"{w}x{h}", iterations=it,
+                   launches={name: launches(mods[name], fn)
+                             for name, fn in forms.items()})
+        row["events_ms"] = in_turns(
+            forms, lambda f: chip_smoke._median_ms(f, 9, 2), rounds)
+        row["device_ms"] = in_turns(forms, lambda f: device_ms(f, 5), rounds)
+        print(f"jacobi {w}x{h} x{it}: launches {row['launches']}; device ms "
+              f"(profiler, in turns) {row['device_ms']!r}; CUDA-event ms "
+              f"{row['events_ms']!r}")
+        if sweep:
+            row["sweep"] = []
+            for cols, rows_, warps, halo in SWEEP:
+                p = kj.JacobiPlan(h, w, it, cols, rows_, warps, min(halo, it))
+                run = lambda: kj.run_plan(buf, tgt, cov, step, reg, p)
+                if not torch.equal(run(), want):
+                    raise AssertionError(f"plan {p} not bit-equal")
+                ms = device_ms(run, 3)
+                row["sweep"].append(dict(plan=[cols, rows_, warps, halo],
+                                         blocks=p.blocks,
+                                         launches=p.launches, device_ms=ms))
+                print(f"  sweep {w}x{h}: {cols}x{rows_} per thread, {warps} "
+                      f"warps, halo {halo}: {p.blocks} blocks, {p.launches} "
+                      f"launches, device {ms!r} ms")
+        levels.append(row)
+    total = {k: {n: float(sum(np.mean(r[k][n]) for r in levels))
+                 for n in mods} for k in ("device_ms", "events_ms")}
+    print(f"jacobi per panorama (mean of the turns): device ms "
+          f"{total['device_ms']!r}; CUDA-event ms {total['events_ms']!r}")
+    return dict(levels=levels, total=total)
+
+
+def group_norm_ab(old_kg, rounds, sweep):
+    from panodepth_torch.e2e import load_model_checkpoint
+    from panodepth_torch.kernels import groupnorm as kg
+
+    base, _ = load_model_checkpoint(chip_smoke.BASE_CKPT)
+    rgb = chip_smoke.make_rgb(chip_smoke.SEED, 2048)
+    with torch.no_grad():
+        calls = chip_smoke._norm_inputs(base, [rgb])
+    mods = dict(new=kg, **({"old": old_kg} if old_kg else {}))
+    forms = {name: (lambda g=g: [g.cuda_group_norm(
+        x, m.scale, m.bias, m.num_groups, 1e-6, m.fuse_relu, m.dtype)
+        for m, x in calls]) for name, g in mods.items()}
+    worst = None
+    if old_kg:
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(forms["old"](), forms["new"]()))
+    res = in_turns(forms, lambda f: device_ms(f, 5), rounds)
+    count = {name: launches(mods[name], fn) for name, fn in forms.items()}
+    print(f"groupnorm per FastPanoNet forward ({len(calls)} calls): device "
+          f"ms (profiler, 5 forwards a turn, in turns) {res!r}; launches "
+          f"{count}; max |old - new| {worst!r}")
+    out = dict(device_ms=res, calls=len(calls), launches=count,
+               max_abs_old_new=worst)
+    if sweep:
+        # at batch 1 and at the e2e call's batch 2: plan_for takes the same
+        # cluster size at both, so what that costs at batch 2 shows here
+        rgb2 = chip_smoke.make_rgb(chip_smoke.SEED + 1, 2048)
+        with torch.no_grad():
+            calls2 = chip_smoke._norm_inputs(base, [rgb, rgb2])
+        out["sweep"] = []
+        seen = set()
+        for m, x in calls + calls2:
+            n, c = x.shape[:2]
+            hw = x[0, 0].numel()
+            if (n, hw, c, m.num_groups) in seen:
+                continue
+            seen.add((n, hw, c, m.num_groups))
+            best = kg.plan_for(n, c, hw, m.num_groups, x.element_size())
+            want = kg.group_norm_plain(x, m.scale, m.bias, m.num_groups,
+                                       1e-6, m.fuse_relu, m.dtype)
+            for k in (1, 2, 4, 8, 16):
+                p = kg.GroupNormPlan(n, c, hw, m.num_groups, x.element_size(),
+                                     k, kg.slice_for(best.span, k), True)
+                if p.smem_bytes + kg.SMEM_STATIC > kg.SMEM_MAX:
+                    continue
+                run = lambda: kg.run_plan(x, m.scale, m.bias, 1e-6,
+                                          m.fuse_relu, m.dtype, p)
+                err = float((run() - want).abs().max())
+                ms = device_ms(run, 10)
+                out["sweep"].append(dict(shape=[n, hw, c, m.num_groups],
+                                         cluster=k, blocks=p.blocks,
+                                         device_ms=ms, max_abs_err=err,
+                                         chosen=k == best.cluster))
+                print(f"  sweep groupnorm (N, HW, C, G)=({n}, {hw}, {c}, "
+                      f"{m.num_groups}): clusters of {k}, {p.blocks} blocks: "
+                      f"device {ms * 1e3!r} us per call, max abs err vs plain"
+                      f" {err!r}{' (plan_for)' if k == best.cluster else ''}")
+    return out
+
+
+def sass_histogram():
+    """{kernel: {opcode: count}} of the new libraries' SASS."""
+    import collections
+    import re
+
+    from panodepth_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = {}
+    for name in _build.SOURCES:
+        text = subprocess.run([cuobjdump, "-sass",
+                               str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                out[fn] = collections.Counter()
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                         line)
+            if fn and m:
+                out[fn][m.group(2).split(".")[0]] += 1
+    for fn, hist in out.items():
+        print(f"sass {fn[:80]}: {sum(hist.values())} instructions; "
+              + ", ".join(f"{op} {n}" for op, n in hist.most_common(16)))
+    return {fn: dict(h) for fn, h in out.items()}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-tree",
+                    help="an earlier checkout to time against (its "
+                         "panodepth_torch/kernels and csrc)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time other launch plans per level and shape")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="rounds of the old,new,new,old turns")
+    ap.add_argument("--sass", action="store_true",
+                    help="print the new kernels' SASS opcode counts")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: needs a CUDA card")
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.kernels import _build
+
+    _, smi = chip_smoke.phase_device()
+    _build.build()
+    sass = sass_histogram() if args.sass else None
+    old_kj, old_kg = (load_old_kernels(args.old_tree) if args.old_tree
+                      else (None, None))
+    cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
+    with torch.no_grad():
+        jac = jacobi_ab(old_kj, cfg, args.rounds, args.sweep)
+        gn = group_norm_ab(old_kg, args.rounds, args.sweep)
+    print(smi)
+    print(json.dumps(dict(card=smi, jacobi=jac, group_norm=gn, sass=sass)))
+
+
+if __name__ == "__main__":
+    main()

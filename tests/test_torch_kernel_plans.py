@@ -1,0 +1,295 @@
+"""The kernels' launch plans (``kernels/jacobi.plan_for``,
+``kernels/groupnorm.plan_for``), checked on the CPU, and the GroupNorm
+wrapper's refusal of tensors that require grad.
+
+The plans are pure Python, so the CPU reaches what the card's kernels are
+told to do: every output pixel or element covered by exactly one tile or
+slice, shared memory and cluster sizes within what an H100 grants, the
+block counts the coarse shapes need, and launch counts equal to the
+wrappers'.  ``_emulate_jacobi`` replays a plan's windows in PyTorch on the
+CPU (flat-index gather, garbage at the window's ring, interior written
+back) and is held bit-equal to the plain Jacobi, as the kernel is on the
+card.  ``_emulate_group_norm`` replays a plan's slices (per-slice f32
+sums combined in rank order, then channel by channel) and is held to the
+plain GroupNorm within the bar of ``tests/test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from panodepth_torch.config import MergeConfig
+from panodepth_torch.fusion import build_fusion_plan
+from panodepth_torch.kernels import groupnorm as kgn
+from panodepth_torch.kernels import jacobi as kj
+from panodepth_torch.models import norm as tnorm
+
+torch.set_num_threads(1)
+
+SMS = 132
+SMEM_MAX = 232448
+SMEM_DEFAULT = 48 * 1024
+
+
+def _levels(out_width):
+    plan = build_fusion_plan(MergeConfig(out_width=out_width))
+    return [(lvl.height, lvl.width, lvl.iterations) for lvl in plan.levels]
+
+
+ODD_LEVELS = [(5, 7, 3), (50, 130, 20), (24, 64, 1)]
+LEVELS = sorted(set(_levels(2048) + _levels(4096))) + ODD_LEVELS
+
+
+@pytest.mark.parametrize("h,w,iters", LEVELS)
+def test_jacobi_plan_covers_each_pixel_once(h, w, iters):
+    p = kj.plan_for(h, w, iters)
+    win_h, win_w = p.window
+    assert (p.cols, p.rows) in kj.TILES and 1 <= p.warps <= kj.MAX_WARPS
+    assert 1 <= p.halo <= iters and p.tile[0] >= 1 and p.tile[1] >= 1
+    # what each block writes, as csrc/jacobi.cu decides it: window cells at
+    # least `halo` from the window's edge that fall inside the level
+    count = np.zeros((h, w), np.int32)
+    gx, gy = p.grid
+    ly, lx = np.meshgrid(np.arange(win_h), np.arange(win_w), indexing="ij")
+    inner = ((ly >= p.halo) & (ly < win_h - p.halo) & (lx >= p.halo)
+             & (lx < win_w - p.halo))
+    for by in range(gy):
+        for bx in range(gx):
+            y = by * p.tile[0] - p.halo + ly
+            x = bx * p.tile[1] - p.halo + lx
+            keep = inner & (y < h) & (x < w)
+            np.add.at(count, (y[keep], x[keep]), 1)
+    assert (count == 1).all()
+    # shared memory: the edge buffer, within the card's 227 KB and the
+    # default 48 KB unless the plan opts in
+    assert p.smem_bytes <= SMEM_MAX
+    if not p.opt_in:
+        assert p.smem_bytes <= SMEM_DEFAULT
+    assert p.warps * 32 <= 1024
+    # the window's flat indices stay 32-bit
+    assert (h + win_h + 1) * w < 2 ** 31
+    assert kj.launches_for(h, w, iters) == p.launches == -(-iters // p.halo)
+
+
+def test_jacobi_plan_fills_the_card_at_512x256():
+    """The 512x256 level launches at least 132 blocks, or puts at least 16
+    warps on each SM it uses (at most one block per SM)."""
+    p = kj.plan_for(256, 512, 200)
+    assert p.blocks >= SMS or (p.warps >= 16 and p.blocks <= SMS)
+    # fewer launches per panorama than the 45 of the 64x56-window form
+    for width in (2048, 4096):
+        total = sum(kj.launches_for(h, w, it) for h, w, it in _levels(width))
+        assert total < 45 * (1 if width == 2048 else 2)
+
+
+def _emulate_jacobi(plan, buf, tgt, cov, step, reg):
+    """The kernel's algorithm in PyTorch: every launch gathers each block's
+    window by flat index modulo N, relaxes the window (window-local rolls:
+    the ring takes garbage taps, as in the kernel; a warp's strip of rows
+    that no later step needs is left as it is) and writes the interior."""
+    h, w = buf.shape
+    n = h * w
+    win_h, win_w = plan.window
+    gx, gy = plan.grid
+    by, bx, ly, lx = torch.meshgrid(torch.arange(gy), torch.arange(gx),
+                                    torch.arange(win_h), torch.arange(win_w),
+                                    indexing="ij")
+    y = by * plan.tile[0] - plan.halo + ly
+    x = bx * plan.tile[1] - plan.halo + lx
+    flat = torch.remainder(y * w + x, n).reshape(-1, win_h, win_w)
+    inner = ((ly >= plan.halo) & (ly < win_h - plan.halo)
+             & (lx >= plan.halo) & (lx < win_w - plan.halo)
+             & (y < h) & (x < w)).reshape(-1, win_h, win_w)
+    t, c = tgt.reshape(-1)[flat], cov.reshape(-1)[flat]
+    strip = torch.arange(win_h).view(win_h, 1) // plan.rows * plan.rows
+    omr = 1.0 - reg
+    done = 0
+    cur = buf
+    while done < plan.iterations:
+        steps = min(plan.halo, plan.iterations - done)
+        b = cur.reshape(-1)[flat]
+        for s in range(steps):
+            taps = (torch.roll(b, 1, 2) + torch.roll(b, -1, 2)
+                    + torch.roll(b, 1, 1) + torch.roll(b, -1, 1))
+            upd = b + (t - (b - 0.25 * taps)) * step
+            upd = torch.clamp(upd * omr + b * reg, 0.0, 1.0)
+            # a warp's strip of rows outside the rows still needed skips
+            live = (strip + plan.rows > s + 1) & (strip < win_h - s - 1)
+            b = torch.where(c & live, upd, b)
+        nxt = torch.full_like(cur, float("nan")).reshape(-1)
+        nxt[flat[inner]] = b[inner]
+        cur = nxt.view(h, w)
+        done += steps
+    return cur
+
+
+@pytest.mark.parametrize("h,w,iters", [(256, 512, 40)] + ODD_LEVELS)
+def test_jacobi_plan_emulated_bit_equal_to_plain(h, w, iters):
+    rng = np.random.RandomState(h * w + iters)
+    buf = torch.tensor(rng.rand(h, w).astype(np.float32))
+    tgt = torch.tensor(rng.normal(0, 0.01, (h, w)).astype(np.float32))
+    cov = rng.rand(h, w) < 0.6
+    cov[0], cov[-1], cov[:, 0], cov[:, -1] = True, True, True, True
+    cov = torch.tensor(cov)
+    plan = kj.plan_for(h, w, iters)
+    assert plan.launches > 1 or iters <= plan.halo
+    got = _emulate_jacobi(plan, buf, tgt, cov, 0.5, 1e-4)
+    want = kj.jacobi_plain(buf, tgt, cov, iters, 0.5, 1e-4)
+    assert torch.equal(got, want)
+
+
+# FastPanoNet's norms at a 256x512 input: (HW, C, G) of its 29 calls
+FASTPANO_SHAPES = [(32768, 96, 32), (32768, 24, 8), (8192, 96, 32),
+                   (8192, 48, 16), (2048, 96, 32), (512, 192, 32),
+                   (512, 96, 32), (128, 384, 32)]
+GN_CASES = ([(n, c, hw, g) for hw, c, g in FASTPANO_SHAPES for n in (1, 2)]
+            + [(3, 20, 63, 4), (1, 4, 1, 4)])
+
+
+@pytest.mark.parametrize("n,c,hw,g", GN_CASES)
+@pytest.mark.parametrize("in_bytes", [2, 4])
+def test_group_norm_plan_slices_cover_each_span_once(n, c, hw, g, in_bytes):
+    p = kgn.plan_for(n, c, hw, g, in_bytes)
+    span = c // g * hw
+    assert p.span == span
+    assert p.cluster in (1, 2, 4, 8, 16) and p.slice % kgn.VEC == 0
+    seen = np.zeros(n * c * hw, np.int32)
+    for image in range(n):
+        for group in range(g):
+            slices = p.slices(image, group)
+            assert len(slices) == p.cluster
+            for s0, s1 in slices:
+                seen[s0:s1] += 1
+            starts = [s0 for s0, _ in slices]
+            assert starts == sorted(starts)
+    assert (seen == 1).all()
+    # shared memory per block: within the card's 227 KB beside the kernel's
+    # static variables, and the default 48 KB unless the plan opts in
+    assert p.smem_bytes + kgn.SMEM_STATIC <= SMEM_MAX
+    if not p.opt_in:
+        assert p.smem_bytes + kgn.SMEM_STATIC <= SMEM_DEFAULT
+    # every FastPanoNet slice is kept in shared memory (one read)
+    if (hw, c, g) in FASTPANO_SHAPES:
+        assert p.staged
+    # enough blocks for the 132 SMs where the cluster size and the span
+    # allow it
+    assert (p.blocks >= SMS or p.cluster == kgn.MAX_CLUSTER
+            or span // (2 * p.cluster) < kgn.MIN_SLICE)
+
+
+def test_group_norm_plan_block_counts_and_opt_in():
+    stem1 = kgn.plan_for(1, 24, 32768, 8, 2)
+    stem2 = kgn.plan_for(2, 24, 32768, 8, 2)
+    # at batch 1 eight groups of 16 blocks are the most clusters allow
+    assert stem1.blocks == 128 and stem1.cluster == 16
+    # at batch 2 the same clusters (the plan does not depend on the batch)
+    assert stem2.blocks >= SMS and stem2.cluster == stem1.cluster
+    # f32 input at the widest span takes the shared-memory opt-in
+    wide = kgn.plan_for(1, 96, 32768, 32, 4)
+    assert wide.staged and wide.opt_in and wide.smem_bytes > SMEM_DEFAULT
+    # a span too large for 16 blocks' shared memory is read twice
+    huge = kgn.plan_for(1, 4, 512 * 1024, 1, 4)
+    assert huge.cluster == 16 and not huge.staged and huge.smem_bytes == 0
+
+
+def _emulate_group_norm(x, scale, bias, groups, eps, plan):
+    """The kernel's partition in PyTorch: each slice summed in f32, the
+    cluster's pairs combined in rank order, then the slice normalised
+    channel by channel."""
+    xf = x.reshape(-1).to(torch.float32)
+    y = torch.empty_like(xf)
+    count = float(plan.span)
+    for image in range(plan.n):
+        for group in range(groups):
+            pairs = [(xf[s0:s1].sum(), (xf[s0:s1] * xf[s0:s1]).sum())
+                     for s0, s1 in plan.slices(image, group)]
+            t1 = torch.zeros((), dtype=torch.float32)
+            t2 = torch.zeros((), dtype=torch.float32)
+            for p1, p2 in pairs:
+                t1, t2 = t1 + p1, t2 + p2
+            mean, mean2 = t1 / count, t2 / count
+            inv = torch.rsqrt(torch.clamp_min(mean2 - mean * mean, 0.0) + eps)
+            for s0, s1 in plan.slices(image, group):
+                for c in range(s0 // plan.hw, -(-s1 // plan.hw)):
+                    a, b = max(s0, c * plan.hw), min(s1, (c + 1) * plan.hw)
+                    ch = c % plan.channels
+                    y[a:b] = (xf[a:b] - mean) * (inv * scale[ch]) + bias[ch]
+    return y.view(x.shape)
+
+
+@pytest.mark.parametrize("shape,groups", [((2, 8, 64, 96), 4),
+                                          ((1, 12, 64, 101), 3),
+                                          ((1, 8, 64, 96), 2)])
+def test_group_norm_plan_emulated_matches_plain(shape, groups):
+    rng = np.random.RandomState(sum(shape))
+    x = torch.tensor(rng.normal(0.3, 1.7, shape).astype(np.float32))
+    scale = torch.tensor(rng.uniform(0.5, 2, shape[1]).astype(np.float32))
+    bias = torch.tensor(rng.uniform(-1, 1, shape[1]).astype(np.float32))
+    n, c = shape[:2]
+    plan = kgn.plan_for(n, c, x[0, 0].numel(), groups, 4)
+    assert plan.cluster > 1  # the slices really split each span
+    got = _emulate_group_norm(x, scale, bias, groups, 1e-6, plan)
+    want = kgn.group_norm_plain(x, scale, bias, groups, 1e-6)
+    tol = 16 * 2.0 ** -23 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("c,hw,g", [(c, hw, g) for hw, c, g in
+                                    FASTPANO_SHAPES] + [(20, 63, 4)])
+@pytest.mark.parametrize("in_bytes", [2, 4])
+def test_group_norm_plan_does_not_depend_on_the_batch(c, hw, g, in_bytes):
+    """Every image's span is split alike at any batch, so its f32 sums run
+    in one order and it normalises to the same bits at batch 1 (the CLI)
+    and at batch 2 (the e2e call)."""
+    one = kgn.plan_for(1, c, hw, g, in_bytes)
+    for n in (2, 3, 8):
+        p = kgn.plan_for(n, c, hw, g, in_bytes)
+        assert (p.cluster, p.slice, p.staged, p.smem_bytes, p.opt_in) == (
+            one.cluster, one.slice, one.staged, one.smem_bytes, one.opt_in)
+        assert p.blocks == n * one.blocks
+        span = one.span
+        assert [(a - span * g * (n - 1), b - span * g * (n - 1))
+                for a, b in p.slices(n - 1, g - 1)] == one.slices(0, g - 1)
+
+
+def test_group_norm_plan_emulated_is_batch_invariant():
+    rng = np.random.RandomState(7)
+    x = torch.tensor(rng.normal(0.3, 1.7, (2, 8, 64, 96)).astype(np.float32))
+    scale = torch.tensor(rng.uniform(0.5, 2, 8).astype(np.float32))
+    bias = torch.tensor(rng.uniform(-1, 1, 8).astype(np.float32))
+    both = _emulate_group_norm(x, scale, bias, 4, 1e-6,
+                               kgn.plan_for(2, 8, 64 * 96, 4, 4))
+    for i in range(2):
+        plan = kgn.plan_for(1, 8, 64 * 96, 4, 4)
+        assert plan.cluster > 1
+        alone = _emulate_group_norm(x[i:i + 1].contiguous(), scale, bias, 4,
+                                    1e-6, plan)
+        assert torch.equal(both[i:i + 1], alone)
+
+
+@pytest.mark.parametrize("grad_on", ["x", "scale", "bias"])
+def test_cuda_group_norm_refuses_grad_before_the_device_check(grad_on):
+    x = torch.randn(2, 8, 4, 4)
+    scale, bias = torch.ones(8), torch.zeros(8)
+    args = dict(x=x, scale=scale, bias=bias)
+    args[grad_on] = args[grad_on].clone().requires_grad_(True)
+    before = kgn.LAUNCHES
+    with pytest.raises(RuntimeError, match="no backward"):
+        kgn.cuda_group_norm(args["x"], args["scale"], args["bias"], 4)
+    # without grad mode the same call gets as far as the device check
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="CUDA tensor"):
+            kgn.cuda_group_norm(args["x"], args["scale"], args["bias"], 4)
+    assert kgn.LAUNCHES == before
+
+
+def test_grad_on_the_cpu_routes_through_the_twin():
+    """``auto`` on a CPU tensor takes the differentiable twin, so gradients
+    flow; the ``kernel`` route refuses rather than dropping them."""
+    m = tnorm.GroupNorm(8, 4)
+    x = torch.randn(2, 8, 4, 4, requires_grad=True)
+    m(x).square().sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    tnorm.set_route(m, "kernel")
+    with pytest.raises(RuntimeError, match="no backward"):
+        m(x)

@@ -4,14 +4,15 @@
     python3 chip_smoke.py
 
 Run from the repository root (it puts the root on ``sys.path`` itself; no
-install, no PYTHONPATH).  It needs one CUDA card and ``nvcc``, imports
-nothing of JAX, of ``panodepth`` or of Pillow, and writes only to a
+install, no PYTHONPATH).  It needs one CUDA card, ``nvcc`` and ``g++``,
+imports nothing of JAX, of ``panodepth`` or of Pillow, and writes only to a
 temporary directory and to the git-ignored ``panodepth_torch/_build/``.
 Phases, each printing its elapsed seconds:
 
-1. device  — the card's name and power limit; TF32 off.
-2. build   — every CUDA source of the port compiled with nvcc (in parallel),
-             with ptxas's registers, shared memory and spills per kernel.
+1. device  — the card's name and power limit.
+2. build   — every CUDA source of the port compiled with nvcc and the JPEG
+             codec with g++ (in parallel), with ptxas's registers, shared
+             memory and spills per kernel.
 3. kernel  — the Jacobi kernel bit-equal to its plain PyTorch version at
              every level of the 2048 and the 4096 plan, each level's launch
              plan printed; the 2048 levels timed beside the plain version
@@ -42,6 +43,22 @@ Phases, each printing its elapsed seconds:
 9. cli-e2e — ``cli.main`` in model mode on two RGB panoramas written as
              8-bit RGB PNGs, with ``--baseline-ckpt`` and with baseline
              files, then again to check resume.
+10. stage-a — the reference's own command, ``0 rgb gt baseline result``
+             with stage A on and the default ``.jpg`` views, on two
+             2048x1024 RGB panoramas written as JPEG by the port's codec
+             (5fold_leres, out 2048, views 1024): the 15 view files of each
+             panorama byte-equal to the codec's encode of the in-memory
+             extraction; then the scene's depth views and baselines as
+             8-bit gray JPEGs, stage A skipping them and the u16 output
+             equal to ``merge_arrays`` on the decoded arrays, Jacobi
+             launches counted, resume; model mode on the JPEG panoramas
+             equal to the same command on PNG copies of their pixels; no
+             Pillow imported; codec and stage-A times.
+
+The device phase leaves PyTorch's TF32 flags as they are: the merge and
+the e2e stages turn TF32 off while they run (``pipeline.true_f32``), and
+phases merge and e2e check that a caller's flags survive them and do not
+change the output.
 
 It prints a JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``.  Any failure raises: the exit code is
@@ -55,6 +72,7 @@ import io as stdio
 import json
 import math
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -127,17 +145,16 @@ def phase_device():
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})")
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return name, smi
 
 
 def phase_build():
     from panodepth_torch.kernels import _build
 
-    seconds = _build.build()
-    for name in _build.SOURCES:
-        print(f"built csrc/{name}.cu in {seconds.get(name, 0.0):.2f} s "
+    seconds = _build.build(_build.SOURCES + _build.HOST_SOURCES)
+    for name in _build.SOURCES + _build.HOST_SOURCES:
+        print(f"built {_build.source_path(name).name} in "
+              f"{seconds.get(name, 0.0):.2f} s "
               f"({'compiled' if name in seconds else 'cached'})")
         # ptxas -v: one entry line per kernel, then its spills and registers
         for line in _build.build_log(name).splitlines():
@@ -326,6 +343,9 @@ def phase_merge(cfg, scene):
     if not bool(torch.isfinite(abcd).all()):
         raise AssertionError("non-finite registration coefficients")
 
+    _hold_tf32_flags("merge", out,
+                     lambda: merge_arrays(emap, pmaps, cfg, jacobi="auto")[0])
+
     plain, _ = merge_arrays(emap, pmaps, cfg, jacobi="torch")
     torch.cuda.synchronize()
     diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
@@ -355,6 +375,26 @@ def phase_merge(cfg, scene):
     _profile_merge(lambda: merge_arrays(emap, pmaps, cfg, jacobi="auto"),
                    warm_ms)
     return out.cpu().numpy(), launches, warm_ms
+
+
+def _hold_tf32_flags(label, want, run):
+    """``run()`` with a caller's TF32 flags on: the flags survive the call
+    and the output equals ``want`` (computed under the default flags)."""
+    mm, cd = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, cd.allow_tf32)
+    try:
+        mm.allow_tf32 = cd.allow_tf32 = True
+        got = run()
+        torch.cuda.synchronize()
+        flags = (mm.allow_tf32, cd.allow_tf32)
+    finally:
+        mm.allow_tf32, cd.allow_tf32 = saved
+    same = torch.equal(got, want)
+    print(f"{label}: with the caller's TF32 flags on, flags after the call "
+          f"{flags}, output bit-equal {same}")
+    if flags != (True, True) or not same:
+        raise AssertionError(f"{label}: the TF32 flags did not survive the "
+                             f"call, or TF32 changed the output")
 
 
 def _profile_merge(run, warm_ms):
@@ -827,6 +867,8 @@ def phase_e2e(persp, base, rgbs_u8):
     if not bool(((bases >= 0) & (bases <= 1)).all()):
         raise AssertionError("e2e baselines are not finite 0~1")
 
+    _hold_tf32_flags("e2e", out, lambda: full(rgbs)[0])
+
     plain_full, _, _ = build_batched_e2e(
         persp, cfg, view_width=256, base_model=base, base_w=512,
         jacobi="torch", groupnorm="torch")
@@ -968,6 +1010,193 @@ def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
                                  "finished panoramas")
 
 
+# --- stage A: the reference's own command, JPEG throughout ---
+
+
+def _view_files(views, raw, layout):
+    return [os.path.join(views, f"{raw}.{layout.view_tag(v)}.jpg")
+            for v in range(layout.num_views)]
+
+
+def phase_stage_a(cfg, scenes, rgbs_u8):
+    """``cli.main`` with stage A on and the default ``.jpg`` views on two
+    JPEG panoramas, stage A checked against the in-memory extraction, the
+    merge against ``merge_arrays``, model mode against PNG copies; then
+    the codec's and stage A's times."""
+    import importlib.util
+
+    from panodepth_torch import cli, io as pio, jpeg, pipeline
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    dev = torch.device("cuda")
+    layout = cfg.layout
+    names = [f"pano_{i:04d}" for i in range(len(rgbs_u8))]
+    per_pano = sum(jacobi_launches(cfg))
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_a_") as root:
+        d = {k: os.path.join(root, k) for k in
+             ("rgb", "rgb_png", "gt", "baseline", "views", "result",
+              "result_e2e", "result_e2e_png")}
+        for path in d.values():
+            os.makedirs(path)
+        for name, rgb, sc in zip(names, rgbs_u8, scenes):
+            with open(os.path.join(d["rgb"], name + ".jpg"), "wb") as fp:
+                fp.write(jpeg.encode(rgb))
+            pio.save_png16(os.path.join(d["gt"], name + ".png"), sc["gt"])
+            # the default (bifuse) naming, an 8-bit gray JPEG
+            pio.save_jpg(os.path.join(d["baseline"], name + ".jpg"),
+                         _as01(sc["base"]))
+        head = ["0", d["rgb"], d["gt"], d["baseline"]]
+        size = ["--layout", cfg.layout_name, "--out-width", str(cfg.out_width)]
+        argv = head + [d["result"], "--views-folder", d["views"]] + size
+
+        # 1. the reference's command with stage A on, into an empty folder
+        if cli.main(argv) != 0:
+            raise AssertionError("cli.main returned non-zero")
+        files = pio.list_images(d["rgb"])
+        stack = torch.tensor(np.stack([pio.load_image01(f) for f in files]),
+                             device=dev)
+        fn, groups = pipeline._extract_batched(cfg, 1024, dev)
+        views = [v.cpu().numpy() for v in fn(stack)]
+        checked = 0
+        for (shape, idxs), group in zip(groups, views):
+            for bi, name in enumerate(names):
+                outs = _view_files(d["views"], name, layout)
+                for j, vi in enumerate(idxs):
+                    u8 = (np.clip(group[bi, j], 0.0, 1.0) * 255.0).astype(
+                        np.uint8)
+                    with open(outs[vi], "rb") as fp:
+                        data = fp.read()
+                    if jpeg.decode(data).shape != shape + (3,):
+                        raise AssertionError(f"{outs[vi]}: wrong shape")
+                    if data != jpeg.encode(u8):
+                        raise AssertionError(f"{outs[vi]} is not the encode "
+                                             f"of the in-memory extraction")
+                    checked += 1
+        if checked != len(names) * layout.num_views or len(
+                os.listdir(d["views"])) != checked:
+            raise AssertionError(f"stage A wrote {len(os.listdir(d['views']))}"
+                                 f" view files, expected {checked}")
+        print(f"stage-a: the reference's command wrote {checked} view files "
+              f"({layout.num_views} per panorama, shapes "
+              f"{[g[0] for g in groups]}), each byte-equal to the codec's "
+              f"encode of the in-memory extraction")
+
+        # 2. the views replaced by depth maps as 8-bit gray JPEGs; the
+        # default command again: stage A skips, stage C merges them
+        for name, sc in zip(names, scenes):
+            for path, view in zip(_view_files(d["views"], name, layout),
+                                  sc["views"]):
+                pio.save_jpg(path, _as01(view))
+        shutil.rmtree(d["result"])
+        stamps = {f: os.stat(os.path.join(d["views"], f)).st_mtime_ns
+                  for f in os.listdir(d["views"])}
+        kj.LAUNCHES = 0
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            if cli.main(argv) != 0:
+                raise AssertionError("cli.main returned non-zero")
+        launches = kj.LAUNCHES
+        if {f: os.stat(os.path.join(d["views"], f)).st_mtime_ns
+                for f in os.listdir(d["views"])} != stamps:
+            raise AssertionError("stage A rewrote existing views")
+        skipped = pipeline.extract_stage_a(files, d["views"], cfg)
+        print(f"stage-a: default .jpg run: stage A extracted {skipped} (views"
+              f" untouched), jacobi launches {launches} (expected "
+              f"{len(names)} x {per_pano})")
+        if skipped or launches != len(names) * per_pano:
+            raise AssertionError("stage-a: stage A re-extracted or the merge "
+                                 "missed the kernel")
+        for name in names:
+            emap = pio.load_image01(os.path.join(d["baseline"], name + ".jpg"))
+            pmaps = np.stack([pio.load_image01(f) for f in
+                              _view_files(d["views"], name, layout)])
+            want, _ = pipeline.merge_arrays(emap, pmaps, cfg)
+            got = pio.read_png(os.path.join(d["result"], name + ".png"))
+            if not np.array_equal(got, want.cpu().numpy()):
+                raise AssertionError(f"{name}: the .jpg run's output differs "
+                                     f"from merge_arrays on the decoded "
+                                     f"arrays")
+        print("stage-a: each output equals merge_arrays on the decoded "
+              "JPEG baseline and views")
+        kj.LAUNCHES = 0
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            cli.main(argv)
+        skips = log.getvalue().count("skip!")
+        print(f"stage-a resume: {skips} skip! lines, {kj.LAUNCHES} launches")
+        if skips != len(names) or kj.LAUNCHES:
+            raise AssertionError("resume did not skip the finished panoramas")
+
+        # 3. model mode on the JPEG panoramas against PNG copies of them
+        ckpt = ["--persp-ckpt", PERSP_CKPT, "--baseline-ckpt", BASE_CKPT] + size
+        for name, f in zip(names, files):
+            with open(f, "rb") as fp:
+                write_png_rgb8(os.path.join(d["rgb_png"], name + ".png"),
+                               jpeg.decode(fp.read(), f))
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        if cli.main(head + [d["result_e2e"]] + ckpt) != 0:
+            raise AssertionError("cli.main returned non-zero")
+        launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+        cli.main(["0", d["rgb_png"]] + head[2:] + [d["result_e2e_png"]]
+                 + ckpt)
+        for name in names:
+            a = pio.read_png(os.path.join(d["result_e2e"], name + ".png"))
+            b = pio.read_png(os.path.join(d["result_e2e_png"], name + ".png"))
+            if (a.shape != (cfg.out_height, cfg.out_width)
+                    or not np.array_equal(a, b)):
+                raise AssertionError(f"{name}: model mode on the JPEG differs"
+                                     f" from model mode on its PNG copy")
+        print(f"stage-a: model mode on the JPEG panoramas equals the PNG "
+              f"copies' run; launches {launches}")
+        want_gn = len(names) * GN_CALLS * kg.launches_per_call()
+        if launches != dict(jacobi=len(names) * per_pano, group_norm=want_gn):
+            raise AssertionError(f"stage-a model mode launches {launches}")
+
+        # 4. no Pillow; the probe imports nothing
+        print(f"stage-a: Pillow importable on this machine: "
+              f"{importlib.util.find_spec('PIL') is not None}; "
+              f"imported: {'PIL' in sys.modules}")
+        if "PIL" in sys.modules:
+            raise AssertionError("the port imported Pillow")
+
+        # 5. times
+        with open(files[0], "rb") as fp:
+            pano_jpeg = fp.read()
+        view_u8 = u8  # the last view checked in 1., 988x1024 RGB
+
+        def host_ms(run, n=5):
+            times = []
+            for _ in range(n + 1):
+                t0 = time.perf_counter()
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times[1:]))
+
+        dec_ms = host_ms(lambda: jpeg.decode(pano_jpeg))
+        enc_ms = host_ms(lambda: jpeg.encode(view_u8))
+        ext_ms = _median_ms(lambda: fn(stack), runs=7, warmup=2)
+        walls = []
+        for k in range(3):
+            out = os.path.join(root, f"views_timed_{k}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipeline.extract_stage_a(files, out, cfg)
+            walls.append((time.perf_counter() - t0) * 1e3 / len(files))
+            shutil.rmtree(out)
+        times = dict(decode_ms=dec_ms, encode_ms=enc_ms, extract_ms=ext_ms,
+                     wall_ms_per_pano=float(np.median(walls)))
+        print(f"stage-a times: decode one {rgbs_u8[0].shape} RGB JPEG "
+              f"{dec_ms!r} ms, encode one {view_u8.shape} view {enc_ms!r} ms"
+              f" (host clock, "
+              f"median of 5), extract {layout.num_views} views of a "
+              f"batch-{len(files)} stack "
+              f"{ext_ms!r} ms (device, CUDA events, median of 7), stage A "
+              f"wall {times['wall_ms_per_pano']!r} ms per panorama (median "
+              f"of 3 runs of 2 panoramas: {walls!r})")
+    return times
+
+
 def main():
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -1000,6 +1229,8 @@ def main():
         e2e = phase_e2e(persp, base, rgbs)
     with Phase("cli-e2e"):
         phase_cli_e2e(rgbs, scenes[0]["gt"], e2e)
+    with Phase("stage-a"):
+        stage_a = phase_stage_a(cfg, scenes, rgbs)
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
@@ -1022,7 +1253,7 @@ def main():
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
-          f"card: {smi}")
+          f"stage A: {stage_a!r}; card: {smi}")
     print(f"chip_smoke wall time: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

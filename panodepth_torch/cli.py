@@ -6,17 +6,20 @@ Reference usage (README.md:50, Main.cpp:692-900)::
 
 Here::
 
-    python -m panodepth_torch 0 rgb/ gt/ baseline/ result/ --no-extract [options]
+    python -m panodepth_torch 0 rgb/ gt/ baseline/ result/ [options]
     python -m panodepth_torch 0 rgb/ gt/ baseline/ result/ \\
         --persp-ckpt zoo/perspective_final.params.npz \\
         [--baseline-ckpt zoo/fastpano_final.params.npz]
 
 Command ``0`` runs the CreateDepthPanoramas batch.  Without
-``--persp-ckpt`` (file mode) it merges the perspective depth maps found in
-``--views-folder`` per panorama (stage C).  With it (model mode) it runs
-the on-device e2e graph on the RGB panoramas: the perspective CNN on the
-extracted views and, with ``--baseline-ckpt``, the baseline CNN (else the
-baseline files of the ``baseline`` folder), then registration and fusion.
+``--persp-ckpt`` (file mode) it extracts the perspective RGB views of every
+panorama into ``--views-folder`` (stage A; skipped where the views exist,
+and with ``--no-extract``), then merges the perspective depth maps found
+there under the same names per panorama (stage C).  With it (model mode)
+it runs the on-device e2e graph on the RGB panoramas: the perspective CNN
+on the extracted views and, with ``--baseline-ckpt``, the baseline CNN
+(else the baseline files of the ``baseline`` folder), then registration
+and fusion.
 Counterpart of ``panodepth/cli.py``; what is not ported yet is refused,
 never ignored.
 """
@@ -59,9 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["matterport", "stanford2d3d", "suncg", "replica"])
     p.add_argument("--pmap-ext", default=".jpg")
     p.add_argument("--no-extract", action="store_true",
-                   help="file mode: skip stage-A RGB view extraction "
-                        "(required there: stage-A file mode is not ported "
-                        "yet)")
+                   help="file mode: skip stage-A RGB view extraction")
     p.add_argument("--jacobi", default="auto", choices=JACOBI_KINDS,
                    help="auto = the CUDA kernel on cuda, the plain PyTorch "
                         "version on cpu; kernel = always the CUDA kernel; "
@@ -79,8 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="process the round-robin slice items[I::N] of the "
                         "(filtered) list; resume still applies per item")
     p.add_argument("--batch-size", type=int, default=1,
-                   help="model mode: panoramas per call (the file-mode "
-                        "batched merge is not ported yet)")
+                   help="model mode: panoramas per call (in file mode "
+                        "stage A batches at least 4 panoramas; the batched "
+                        "merge is not ported yet)")
     p.add_argument("--persp-ckpt", default=None,
                    help="model mode: the perspective CNN's checkpoint "
                         "(*.params.npz beside its <model>.config.json)")
@@ -123,10 +125,6 @@ def _refusal(args) -> str | None:
             if getattr(args, name) is not None:
                 return (f"--{name.replace('_', '-')} applies to the "
                         f"on-device model mode only; pass --persp-ckpt")
-        if not args.no_extract:
-            return ("stage-A view extraction to files is not ported yet: "
-                    "pass --no-extract and provide the depth views in "
-                    "--views-folder, or run the model mode (--persp-ckpt)")
         if args.batch_size != 1:
             return ("--batch-size > 1 in file mode (the batched merge) is "
                     "not ported yet")
@@ -175,6 +173,7 @@ def main(argv=None) -> int:
         args.rgb_folder, args.gt_folder, args.baseline_folder,
         args.result_folder, cfg,
         views_folder=args.views_folder, dataset=args.dataset,
+        extract_rgb_views=not args.no_extract,
         pmap_ext=args.pmap_ext, limit=args.limit, include=args.include,
         exclude=args.exclude, shard=args.shard, jacobi=args.jacobi,
         device=args.device,

@@ -38,7 +38,7 @@ from .models import weights
 from .models.perspective import predict_depth01
 from .ops.projection import extract_group, view_groups
 from .ops.resize import resize_bilinear, resize_bilinear_nhwc
-from .pipeline import resolve_device
+from .pipeline import resolve_device, true_f32
 
 EXTRACT_DTYPES = ("auto", "f32")
 
@@ -77,16 +77,6 @@ def _stack_if_uniform(maps):
     if len({tuple(m.shape) for m in maps}) == 1:
         return torch.stack(maps)
     return list(maps)
-
-
-def _prepare_device(device):
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        # the registration's normal equations need true f32 (see
-        # pipeline.merge_arrays), and f32 nets must not run cuDNN in TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return dev
 
 
 def full_pipeline(rgb, persp_model, base_model=None, baseline=None,
@@ -147,7 +137,7 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     (``auto``: the CUDA kernels on the card, the plain versions on the CPU).
     """
     _resolve_extract_dtype(extract_dtype)
-    dev = _prepare_device(device)
+    dev = resolve_device(device)
     relax = kjacobi.resolve(jacobi)
     kgroupnorm.resolve(groupnorm)
     persp_model = persp_model.to(dev)
@@ -157,6 +147,8 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     plan = build_fusion_plan(cfg)
     groups = list(view_groups(layout, view_width).items())
 
+    # TF32 off while a stage runs, the caller's flags back after it
+    @true_f32()
     def models_stage(rgbs, baselines=None):
         rgbs01 = _as01_img(torch.as_tensor(rgbs, device=dev))
         b = rgbs01.shape[0]
@@ -182,6 +174,7 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
                 pmaps[i] = depths[:, j]
         return baselines, pmaps
 
+    @true_f32()
     def fuse_stage(baselines, pmaps):
         outs, abcds = [], []
         for k in range(baselines.shape[0]):
@@ -227,7 +220,7 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                          f"got {infer_norm!r}")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
-    dev = _prepare_device(device)
+    dev = resolve_device(device)
     norm_dtype = torch.bfloat16 if infer_norm == "bf16" else None
     persp_model, persp_arch = load_model_checkpoint(persp_ckpt, norm_dtype,
                                                     device=dev)

@@ -1,14 +1,17 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface, so it is
 compiled by ``nvcc`` alone into a shared library (seconds) instead of
 through ``torch.utils.cpp_extension`` (whose sources include PyTorch's
-headers and take minutes) and loaded with :class:`ctypes.CDLL`.
+headers and take minutes) and loaded with :class:`ctypes.CDLL`.  Host
+sources, ``csrc/<name>.cpp`` (the JPEG codec), take the same route through
+``g++``, so they build wherever the port runs, the CPU included.
 
 The build runs at first use, never at import.  Libraries go to
 ``panodepth_torch/_build/`` (listed in ``.gitignore``), named by a hash of
 the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.
+one is loaded as it is.  A build writes ``*.<pid>.tmp`` and renames it into
+place, so concurrent processes that build the same source are safe.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -25,15 +29,18 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("jacobi", "groupnorm")
+SOURCES = ("jacobi", "groupnorm")  # CUDA sources, csrc/<name>.cu
+HOST_SOURCES = ("jpeg",)           # host C++ sources, csrc/<name>.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction: the kernels round like the plain PyTorch versions
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -48,27 +55,47 @@ def nvcc_path() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def gxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++`` on PATH."""
+    for cand in (os.environ.get("CXX"), shutil.which("g++")):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise RuntimeError("g++ not found (set CXX or put g++ on PATH); the "
+                       "JPEG codec is built from csrc/jpeg.cpp at first use")
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cpp`` for a host source, else ``csrc/<name>.cu``."""
+    return CSRC_DIR / (f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu")
+
+
+def _flags(name: str):
+    return GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src = source_path(name).read_bytes()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every missing library among ``names``, all nvcc processes
-    started together.  Returns seconds per library built; raises with nvcc's
-    output if any build fails."""
+    """Compile every missing library among ``names``, all compiler processes
+    started together.  Returns seconds per library built; raises with the
+    compiler's output if any build fails."""
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
         return {}
-    nvcc = nvcc_path()
+    compilers = {n: gxx_path() if n in HOST_SOURCES else nvcc_path()
+                 for n in todo}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.monotonic()
     procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [compilers[name], *_flags(name), "-o", str(tmp),
+               str(source_path(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -77,8 +104,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         log, _ = proc.communicate()
         seconds[name] = time.monotonic() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu "
-                          f"(exit {proc.returncode}):\n{log}")
+            failed.append(f"{os.path.basename(compilers[name])} failed on "
+                          f"csrc/{source_path(name).name} (exit "
+                          f"{proc.returncode}):\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or none
@@ -95,8 +123,10 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if missing."""
-    if name not in _LIBS:
-        build([name])
-        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
-    return _LIBS[name]
+    """The loaded library for ``csrc/<name>.cu`` or ``.cpp``, built first if
+    missing (one build per process however many threads ask)."""
+    with _LOAD_LOCK:
+        if name not in _LIBS:
+            build([name])
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        return _LIBS[name]

@@ -1,5 +1,5 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package, and its PNG/PFM path runs without Pillow.
+package, and its PNG, PFM, JPEG and BMP paths run without Pillow.
 
 Both checks run in a subprocess, since this test process has JAX loaded
 (tests/conftest.py imports it).
@@ -57,8 +57,8 @@ def test_png_and_pfm_without_pillow():
         sys.modules["PIL"] = None  # any import of Pillow now fails
         sys.path.insert(0, ".")
         import numpy as np
-        from panodepth_torch import io as pio
-        import tempfile, os
+        from panodepth_torch import io as pio, jpeg
+        import tempfile, os, struct
         rng = np.random.RandomState(0)
         with tempfile.TemporaryDirectory() as d:
             u16 = rng.randint(0, 65536, (17, 33)).astype(np.uint16)
@@ -70,12 +70,33 @@ def test_png_and_pfm_without_pillow():
             with open(os.path.join(d, "b.pfm"), "wb") as fp:  # little-endian Pf
                 fp.write(b"Pf\\n7 5\\n-1.0\\n" + f.astype("<f4").tobytes())
             assert np.array_equal(pio.load_pfm(os.path.join(d, "b.pfm")), f)
-            try:
-                pio.load_image01(os.path.join(d, "c.jpg"))
-            except ImportError as e:
-                assert "Pillow" in str(e), e
-            else:
-                raise AssertionError("JPEG read without Pillow did not raise")
+            # a JPEG of 8x8 blocks of one gray each holds only DC terms,
+            # which the quality-95 table reproduces exactly
+            g = np.kron(rng.randint(0, 256, (3, 5)), np.ones((8, 8)))
+            g = g.astype(np.uint8)
+            # save_jpg truncates v * 255: (k + 0.5) / 255 comes back as k
+            pio.save_jpg(os.path.join(d, "c.jpg"), (g + 0.5) / 255)
+            assert np.array_equal(pio.read_image(os.path.join(d, "c.jpg")), g)
+            yx = np.mgrid[:9, :14]
+            rgb = np.stack([yx[0] * 20 + 30, yx[1] * 12 + 40,
+                            yx[0] * 9 + yx[1] * 7], -1).astype(np.uint8)
+            pio.save_jpg(os.path.join(d, "d.jpg"), (rgb + 0.5) / 255)
+            back = pio.read_image(os.path.join(d, "d.jpg"))
+            assert np.array_equal(back, jpeg.decode(jpeg.encode(rgb)))
+            assert np.abs(back.astype(int) - rgb).mean() < 8
+            # a 24-bit bottom-up BMP, rows padded to 4 bytes
+            stride = (14 * 3 + 3) // 4 * 4
+            rows = np.zeros((9, stride), np.uint8)
+            rows[:, :42] = rgb[::-1, :, ::-1].reshape(9, 42)
+            with open(os.path.join(d, "e.bmp"), "wb") as fp:
+                fp.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54)
+                         + struct.pack("<IiiHHIIiiII", 40, 14, 9, 1, 24, 0,
+                                       rows.size, 0, 0, 0, 0)
+                         + rows.tobytes())
+            assert np.array_equal(pio.read_image(os.path.join(d, "e.bmp")), rgb)
+            assert np.array_equal(pio.load_image01(os.path.join(d, "e.bmp")),
+                                  rgb.astype(np.float32) / np.float32(255))
+        assert "PIL" not in sys.modules or sys.modules["PIL"] is None
         print("ok")
     """)
     assert out.strip() == "ok"

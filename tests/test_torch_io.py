@@ -1,11 +1,15 @@
-"""The port's PNG codec (stdlib zlib + numpy) and dataset naming.
+"""The port's PNG codec (stdlib zlib + numpy), BMP reader, writers and
+dataset naming.
 
 PNGs written by Pillow (through the JAX package's writers) and PNGs
 filtered here row by row with each of the five PNG filters decode to the
 same pixels Pillow reads; the port's own 16-bit files read back exactly
-in both packages.
+in both packages.  BMPs, ``load_image_int``, ``save_png8``, ``save_pfm``
+and ``save_jpg`` agree with the JAX package on the same files, and files
+the port writes load the same through both packages.
 """
 
+import io
 import os
 import struct
 import zlib
@@ -160,3 +164,112 @@ def test_list_images(tmp_path):
     assert tio.list_images(str(tmp_path)) == jio.list_images(str(tmp_path))
     assert [os.path.basename(p) for p in tio.list_images(str(tmp_path))] == \
         ["a.jpg", "b.png", "d.PFM"]
+
+
+def _bmp_variants(rgb, gray):
+    """BMPs Pillow writes (8-bit gray, 24-bit, 32-bit from RGBA), a
+    top-down copy of the 24-bit one, and a 32-bit BI_BITFIELDS file with an
+    alpha mask (V4 header), written here."""
+    out = {}
+    for name, img in (("gray", Image.fromarray(gray, "L")),
+                      ("rgb24", Image.fromarray(rgb)),
+                      ("rgbx32", Image.fromarray(np.dstack(
+                          [rgb, np.full(rgb.shape[:2], 77, np.uint8)])))):
+        buf = io.BytesIO()
+        img.save(buf, "BMP")
+        out[name] = buf.getvalue()
+    # the 24-bit file with its rows in file order reversed and height < 0
+    data = bytearray(out["rgb24"])
+    h, w = rgb.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    rows = bytes(data[54:54 + h * stride])
+    flipped = b"".join(rows[(h - 1 - y) * stride:(h - y) * stride]
+                       for y in range(h))
+    data[22:26] = struct.pack("<i", -h)
+    out["rgb24_topdown"] = bytes(data[:54]) + flipped
+    alpha = (np.arange(h * w).reshape(h, w) % 251).astype(np.uint8)
+    bgra = np.dstack([rgb[..., ::-1], alpha])[::-1]
+    header = struct.pack("<IiiHHIIiiII", 108, w, h, 1, 32, 3, bgra.size, 0,
+                         0, 0, 0)
+    header += struct.pack("<IIII", 0xFF0000, 0xFF00, 0xFF, 0xFF000000)
+    header += bytes(108 - len(header))
+    out["rgba32_bitfields"] = (b"BM" + struct.pack("<IHHI", 14 + 108
+                                                   + bgra.size, 0, 0, 122)
+                               + header + bgra.tobytes())
+    return out
+
+
+def test_bmp_reader_matches_pillow(tmp_path):
+    rng = np.random.RandomState(3)
+    rgb = rng.randint(0, 256, (7, 13, 3)).astype(np.uint8)  # 13: row padding
+    gray = rng.randint(0, 256, (7, 13)).astype(np.uint8)
+    for name, data in _bmp_variants(rgb, gray).items():
+        f = tmp_path / f"{name}.bmp"
+        f.write_bytes(data)
+        want = np.asarray(Image.open(f))
+        got = tio.read_image(str(f))
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+        np.testing.assert_array_equal(tio.load_image01(str(f)),
+                                      jio.load_image01(str(f)))
+
+
+def test_bmp_reader_refuses_colour_palettes(tmp_path):
+    f = tmp_path / "p.bmp"
+    img = Image.fromarray(np.arange(12, dtype=np.uint8).reshape(3, 4), "L")
+    img = img.convert("P", palette=Image.Palette.ADAPTIVE, colors=4)
+    img.putpalette([255, 0, 0, 0, 255, 0, 0, 0, 255, 9, 9, 9])
+    img.save(f)
+    with pytest.raises(ValueError, match="colour palette"):
+        tio.read_image(str(f))
+
+
+def test_load_image_int_matches_jax(tmp_path):
+    rng = np.random.RandomState(4)
+    u16 = rng.randint(0, 65536, (9, 11)).astype(np.uint16)
+    rgb = rng.randint(0, 256, (9, 11, 3)).astype(np.uint8)
+    jio.save_png16(str(tmp_path / "a.png"), u16)
+    Image.fromarray(rgb).save(tmp_path / "b.png")
+    jio.save_jpg(str(tmp_path / "c.jpg"), rgb / 255.0)
+    Image.fromarray(rgb).save(tmp_path / "d.bmp")
+    jio.save_pfm(str(tmp_path / "e.pfm"), rng.rand(4, 5))
+    for name in ("a.png", "b.png", "c.jpg", "d.bmp"):
+        got, gs = tio.load_image_int(str(tmp_path / name))
+        want, ws = jio.load_image_int(str(tmp_path / name))
+        assert gs == ws and got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    assert tio.load_image_int(str(tmp_path / "e.pfm")) is None
+    assert jio.load_image_int(str(tmp_path / "e.pfm")) is None
+
+
+def test_writers_read_back_in_both_packages(tmp_path):
+    rng = np.random.RandomState(6)
+    m = rng.rand(10, 17).astype(np.float32)
+    rgb = rng.rand(10, 17, 3).astype(np.float32)
+    tio.save_png8(str(tmp_path / "t8.png"), m)
+    jio.save_png8(str(tmp_path / "j8.png"), m)
+    for name in ("t8.png", "j8.png"):
+        for loader in (tio.load_image01, jio.load_image01):
+            np.testing.assert_array_equal(loader(str(tmp_path / name)),
+                                          jio.load_image01(
+                                              str(tmp_path / "j8.png")))
+    tio.save_pfm(str(tmp_path / "t.pfm"), rgb * 7)
+    jio.save_pfm(str(tmp_path / "j.pfm"), rgb * 7)
+    assert (tmp_path / "t.pfm").read_bytes() == (tmp_path / "j.pfm").read_bytes()
+    for mono in (False, True):
+        np.testing.assert_array_equal(tio.load_image01(str(tmp_path / "t.pfm"),
+                                                       mono),
+                                      jio.load_image01(str(tmp_path / "t.pfm"),
+                                                       mono))
+    # save_jpg follows the name as Pillow does: .jpg is JPEG, .png 8-bit PNG
+    for ext in (".jpg", ".png"):
+        for img in (m, rgb):
+            tio.save_jpg(str(tmp_path / f"t{ext}"), img)
+            jio.save_jpg(str(tmp_path / f"j{ext}"), img)
+            a = tio.load_image01(str(tmp_path / f"t{ext}"))
+            b = jio.load_image01(str(tmp_path / f"j{ext}"))
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(jio.load_image01(
+                str(tmp_path / f"t{ext}")), b)
+    with pytest.raises(ValueError, match="save_jpg writes"):
+        tio.save_jpg(str(tmp_path / "x.tif"), m)

@@ -6,6 +6,7 @@
 * The verify-skill scene (``--layout 3fold --out-width 256``) through both
   CLIs: the same files, outputs within 2 u16, metrics within 1e-4.
 * Resume, quarantine, and the CLI's refusals of what is not ported.
+  (Stage A on: ``tests/test_torch_stage_a.py``.)
 """
 
 import json
@@ -179,8 +180,13 @@ def test_cli_resume_skips(cli_runs, capsys):
     assert m["skipped"] == [names[0]] and m["completed"] == []
 
 
+# file mode with stage A on (no --no-extract) still refuses the batched
+# merge; stage A itself runs (tests/test_torch_stage_a.py)
+_STAGE_A_ON = ("--batch-size", "2")
+
+
 @pytest.mark.parametrize("extra,needle", [
-    ((), "stage-A"),
+    pytest.param(_STAGE_A_ON, "--batch-size", id="extra0-stage-A"),
     # the model mode runs (tests/test_torch_e2e.py); its int8 perspective
     # graph is still refused
     pytest.param(("--persp-ckpt", "x.npz", "--persp-int8"), "--persp-int8",
@@ -195,7 +201,7 @@ def test_cli_resume_skips(cli_runs, capsys):
 def test_cli_refuses_what_is_not_ported(tmp_path, extra, needle):
     argv = ["0", str(tmp_path), str(tmp_path), str(tmp_path), str(tmp_path),
             "--device", "cpu"]
-    if needle != "stage-A":
+    if extra != _STAGE_A_ON:
         argv.append("--no-extract")
     with pytest.raises(SystemExit) as e:
         tcli.main(argv + list(extra))

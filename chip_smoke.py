@@ -37,9 +37,14 @@ Phases, each printing its elapsed seconds:
              plain route.
 8. e2e     — the slice's main path, ``build_batched_e2e`` at full width
              (5fold_leres, 2048, views 256, baseline CNN 512) on two
-             synthetic panoramas: launches of both kernels counted, the u16
-             output against the plain routes', warm time per panorama
-             (models, fuse, total) and the device's idle share.
+             synthetic panoramas, replayed from CUDA graphs: launches of
+             both kernels counted at the capture and seen again in a
+             replay under the profiler, the graph bit-equal to its eager
+             stages, the u16 output against the plain routes', each
+             panorama at batch 1 against batch 2 (within 1 u16) and, for
+             the record, the first tensor that differed when each net ran
+             on the whole batch; warm time per panorama (models, fuse,
+             total) and the device's idle share.
 9. cli-e2e — ``cli.main`` in model mode on two RGB panoramas written as
              8-bit RGB PNGs, with ``--baseline-ckpt`` and with baseline
              files, then again to check resume.
@@ -54,6 +59,27 @@ Phases, each printing its elapsed seconds:
              launches counted, resume; model mode on the JPEG panoramas
              equal to the same command on PNG copies of their pixels; no
              Pillow imported; codec and stage-A times.
+11. batched — the Jacobi kernel on a batch of panoramas with one mask,
+             bit-equal to the plain version and to each panorama alone at
+             every level of the 2048 plan (B = 3) and at 4096x2048 (B =
+             2), one launch sequence per batch; the 2048 pyramid timed per
+             panorama at B = 1, 4 and 24.
+12. graphs — the compiled merge forms (``compiled_merge``, ``_staged``,
+             ``_batched`` at B = 4 and 24) bit-equal to the eager merge per
+             panorama, a replay's kernels under the profiler, one 4096
+             merge through a graph against the eager plain-Jacobi path,
+             ``merge_many`` on files at batch 4 (stream off and on,
+             profiled), the CLIs with ``--batch-size 4 --profile`` (file
+             mode) and ``--batch-size 2 --profile --stream on`` (model
+             mode) against the single-panorama outputs, with resume; then
+             eager and graph times in turns (eager, graph, graph, eager):
+             the merge at batch 1, the batched graph at 4 and 24, the e2e
+             graph at batch 2 (and its eager stages) and 8, each with the
+             device's idle share.
+
+Launch counts: a graph's kernels are counted by their wrappers at the two
+warm-up calls and the capture (``graph_launches``); a replay launches them
+without counting, and the profiler sees them there.
 
 The device phase leaves PyTorch's TF32 flags as they are: the merge and
 the e2e stages turn TF32 off while they run (``pipeline.true_f32``), and
@@ -192,6 +218,27 @@ def jacobi_launches(cfg):
 
     return [kj.launches_for(lvl.height, lvl.width, lvl.iterations)
             for lvl in build_fusion_plan(cfg).levels]
+
+
+def graph_launches(per_call):
+    """Launches counted when a call captures a new graph: the warm-up calls
+    and the captured call (a replay launches the kernels again without
+    counting them; torch.profiler sees those)."""
+    from panodepth_torch import graphs
+
+    return (graphs.WARMUP + 1) * per_call
+
+
+def fresh_graphs():
+    """Drop the cached compiled merges (and their graphs), so that the next
+    call of each captures anew and its launches are counted."""
+    from panodepth_torch import pipeline
+
+    for factory in (pipeline.compiled_merge, pipeline.compiled_merge_staged,
+                    pipeline.compiled_merge_batched,
+                    pipeline.compiled_merge_staged_batched):
+        factory.cache_clear()
+    torch.cuda.empty_cache()
 
 
 def phase_kernel(cfg, cfg_4096):
@@ -440,13 +487,16 @@ def phase_cli(cfg, scenes, merged0):
                 d["views"], "--layout", cfg.layout_name,
                 "--out-width", str(cfg.out_width)]
 
+        fresh_graphs()
         kj.LAUNCHES = 0
         if cli.main(argv) != 0:
             raise AssertionError("cli.main returned non-zero")
         launches = kj.LAUNCHES
+        want = graph_launches(sum(jacobi_launches(cfg)))
         print(f"cli: jacobi kernel launches {launches} for {len(names)} "
-              f"panoramas")
-        if launches != len(names) * sum(jacobi_launches(cfg)):
+              f"panoramas (expected {want}: one graph captured, then "
+              f"replayed)")
+        if launches != want:
             raise AssertionError(f"cli launched the kernel {launches} times")
         for name in names:
             for suffix in (".png", ".aligned.txt", ".png.res.png",
@@ -836,9 +886,64 @@ def phase_models(persp, base, rgb_u8):
     return dict(base_ms=base_ms, persp_ms=persp_ms)
 
 
+def _before_repair(persp, base, rgbs, cfg):
+    """The e2e chain with each net run on the whole batch, as the e2e graph
+    ran before its nets ran one panorama per call: baselines, pmaps, abcd
+    and output of panorama 0 at batch 2 against batch 1, and the first of
+    these that differs."""
+    from panodepth_torch import pipeline, registration
+    from panodepth_torch.fusion import build_fusion_plan, fuse
+    from panodepth_torch.models.perspective import predict_depth01
+    from panodepth_torch.ops.projection import extract_group, view_groups
+    from panodepth_torch.ops.resize import (resize_bilinear,
+                                            resize_bilinear_nhwc)
+
+    (shape, idxs), = view_groups(cfg.layout, 256).items()
+    feed = resize_bilinear_nhwc(rgbs, (256, 512))
+    views = resize_bilinear_nhwc(extract_group(
+        rgbs, cfg.layout.fovs[idxs], shape).reshape(-1, *shape, 3), (256, 256))
+    n = len(idxs)
+    got = {}
+    with pipeline.true_f32():
+        for b in (2, 1):
+            bases = base(feed[:b])
+            pm = predict_depth01(persp, views[:b * n]).reshape(b, n, 256, 256)
+            pm0 = resize_bilinear(pm[0], shape)
+            abcd = registration.register_views(bases[0], pm0, cfg)
+            out, _ = fuse(bases[0], pm0, build_fusion_plan(cfg), abcd=abcd)
+            got[b] = dict(baselines=bases[0], pmaps=pm0, abcd=abcd, output=out)
+    first, lines = None, []
+    for key in ("baselines", "pmaps", "abcd", "output"):
+        a, b = got[2][key].float(), got[1][key].float()
+        d = float((a - b).abs().max())
+        lines.append(f"{key} max |diff| {d!r}")
+        if first is None and d > 0:
+            first = key
+    torch.cuda.synchronize()
+    print(f"e2e before the repair (each net on the whole batch), panorama 0 "
+          f"at batch 2 vs batch 1: {'; '.join(lines)}; first tensor that "
+          f"differs: {first}")
+    # what the repair costs the card: both nets on the batch of 2 against
+    # one panorama per call, device busy under the profiler
+    with pipeline.true_f32():
+        whole, _ = _device_profile(lambda: (base(feed),
+                                            predict_depth01(persp, views)))
+        each, _ = _device_profile(lambda: [
+            (base(feed[k:k + 1]), predict_depth01(persp, views[k * n:(k + 1)
+                                                                * n]))
+            for k in range(2)])
+    print(f"e2e nets device busy per panorama at batch 2: each net on the "
+          f"whole batch {whole / 2!r} ms, one panorama per call "
+          f"{each / 2!r} ms")
+    return dict(first=first, nets_busy_ms_per_pano=dict(whole=whole / 2,
+                                                        each=each / 2))
+
+
 def phase_e2e(persp, base, rgbs_u8):
     """The main path: the batched e2e graph at full width on two panoramas,
-    through both kernels, against the plain routes, timed and profiled."""
+    through both kernels and replayed from CUDA graphs, against its eager
+    stages and the plain routes, batch 2 against batch 1, timed and
+    profiled."""
     from panodepth_torch import MergeConfig
     from panodepth_torch.e2e import build_batched_e2e
     from panodepth_torch.kernels import groupnorm as kg
@@ -848,31 +953,40 @@ def phase_e2e(persp, base, rgbs_u8):
     cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
     b = len(rgbs_u8)
     rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
-    full, models_stage, fuse_stage = build_batched_e2e(
-        persp, cfg, view_width=256, base_model=base, base_w=512)
-    want_j = b * sum(jacobi_launches(cfg))
-    want_g = GN_CALLS * kg.launches_per_call()  # one forward of the batch
+    build = lambda **kw: build_batched_e2e(persp, cfg, view_width=256,
+                                           base_model=base, base_w=512, **kw)
+    full, models_stage, fuse_stage = build()
+    # one Jacobi launch sequence for the batch; one FastPanoNet forward per
+    # panorama; counted at the warm-ups and the capture
+    want_j = graph_launches(sum(jacobi_launches(cfg)))
+    want_g = graph_launches(b * GN_CALLS * kg.launches_per_call())
 
     kj.LAUNCHES = kg.LAUNCHES = 0
     out, bases = full(rgbs)
     torch.cuda.synchronize()
     launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
     print(f"e2e: {b} panoramas {tuple(rgbs.shape)} -> {tuple(out.shape)} "
-          f"{out.dtype}; launches {launches} (expected jacobi {want_j}, "
-          f"group_norm {want_g})")
+          f"{out.dtype}; launches {launches} at the capture (expected "
+          f"jacobi {want_j}, group_norm {want_g})")
     if launches != dict(jacobi=want_j, group_norm=want_g):
         raise AssertionError(f"e2e launches {launches}")
     if out.shape != (b, 1024, 2048) or out.dtype != torch.uint16:
         raise AssertionError(f"bad e2e output {tuple(out.shape)} {out.dtype}")
     if not bool(((bases >= 0) & (bases <= 1)).all()):
         raise AssertionError("e2e baselines are not finite 0~1")
+    eager, eager_bases = full.eager(rgbs)
+    torch.cuda.synchronize()
+    same = torch.equal(out, eager) and torch.equal(bases, eager_bases)
+    print(f"e2e: the graph's output and baselines bit-equal to the eager "
+          f"stages: {same}")
+    if not same:
+        raise AssertionError("e2e graph differs from its eager stages")
 
-    _hold_tf32_flags("e2e", out, lambda: full(rgbs)[0])
+    # a graph captured while the caller's TF32 flags are on
+    _hold_tf32_flags("e2e", out, lambda: build()[0](rgbs)[0])
 
-    plain_full, _, _ = build_batched_e2e(
-        persp, cfg, view_width=256, base_model=base, base_w=512,
-        jacobi="torch", groupnorm="torch")
-    plain, _ = plain_full(rgbs)
+    plain_full, _, _ = build(jacobi="torch", groupnorm="torch")
+    plain, _ = plain_full.eager(rgbs)
     torch.cuda.synchronize()
     diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
     dmax, dmean = int(diff.max()), float(diff.float().mean())
@@ -882,13 +996,19 @@ def phase_e2e(persp, base, rgbs_u8):
         raise AssertionError("e2e u16 output of the kernel routes differs "
                              "from the plain routes'")
 
-    # the CLI runs one panorama per call: the same graph at batch 1 (cuDNN
-    # may pick other algorithms for another batch, so bf16 rounds apart)
-    single, _ = full(rgbs[:1])
+    # the CLI runs one panorama per call: each panorama at batch 1 gives
+    # its batch-2 output (each net runs one panorama per call)
+    singles = [full(rgbs[k:k + 1])[0][0] for k in range(b)]
     torch.cuda.synchronize()
-    d1 = (out[0].to(torch.int32) - single[0].to(torch.int32)).abs()
-    print(f"e2e: batch 2 vs batch 1, first panorama: u16 max diff "
-          f"{int(d1.max())}, mean {float(d1.float().mean())!r}")
+    batch_diff = []
+    for k, single in enumerate(singles):
+        d1 = (out[k].to(torch.int32) - single.to(torch.int32)).abs()
+        batch_diff.append((int(d1.max()), float(d1.float().mean())))
+    print(f"e2e: batch 2 vs batch 1 per panorama: u16 (max, mean) "
+          f"{batch_diff} (bound: max <= 1)")
+    before = _before_repair(persp, base, rgbs, cfg)
+    if max(d for d, _ in batch_diff) > 1:
+        raise AssertionError("a panorama's e2e output depends on its batch")
 
     models_ms, fuse_ms, total_ms = [], [], []
     for _ in range(6):  # one warm-up, then five timed
@@ -905,10 +1025,10 @@ def phase_e2e(persp, base, rgbs_u8):
         total_ms.append((t2 - t0) * 1e3 / b)
     warm = {k: float(np.median(v[1:])) for k, v in
             (("models", models_ms), ("fuse", fuse_ms), ("total", total_ms))}
-    print(f"e2e warm time per panorama (batch {b}, host clock to "
-          f"synchronize, median of 5): models {warm['models']!r} ms, fuse "
-          f"{warm['fuse']!r} ms, total {warm['total']!r} ms; totals "
-          f"{total_ms[1:]!r}")
+    print(f"e2e warm time per panorama (batch {b}, the two stage graphs, "
+          f"host clock to synchronize, median of 5): models "
+          f"{warm['models']!r} ms, fuse {warm['fuse']!r} ms, total "
+          f"{warm['total']!r} ms; totals {total_ms[1:]!r}")
     bs, pm = models_stage(rgbs)
     stage_busy = dict(models=_device_profile(lambda: models_stage(rgbs))[0],
                       fuse=_device_profile(lambda: fuse_stage(bs, pm))[0])
@@ -922,23 +1042,41 @@ def phase_e2e(persp, base, rgbs_u8):
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, events = _device_profile(lambda: full(rgbs))
+    kernel_ms = {}
     if busy_ms > 0:
-        print(f"e2e profile of one {b}-panorama call: device busy {busy_ms!r}"
-              f" ms of the unprofiled {call_ms!r} ms (idle share "
+        print(f"e2e profile of one {b}-panorama replay: device busy "
+              f"{busy_ms!r} ms of the unprofiled {call_ms!r} ms (idle share "
               f"{1 - busy_ms / call_ms!r}); top device time by name "
               f"(ms, calls):")
         for ms, count, name in events[:14]:
             print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
-        print("e2e profile, the port's own kernels (ms, launches):")
+        print("e2e profile, the port's own kernels in the replay (ms, "
+              "launches):")
         for ms, count, name in events:
-            if "jacobi_tile" in name or "gn_cluster" in name:
-                print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
+            for key, tag in (("jacobi", "jacobi_tile"),
+                             ("group_norm", "gn_cluster")):
+                if tag in name:
+                    print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
+                    k = kernel_ms.setdefault(key, dict(ms=0.0, launches=0))
+                    k["ms"] += ms
+                    k["launches"] += count
+        replayed = {k: v["launches"] for k, v in kernel_ms.items()}
+        want = dict(jacobi=want_j // graph_launches(1),
+                    group_norm=want_g // graph_launches(1))
+        print(f"e2e replay launches seen by the profiler {replayed} "
+              f"(expected {want})")
+        if replayed != want:
+            raise AssertionError("the e2e replay did not run the kernels "
+                                 "of its capture")
     else:
         print("e2e profile: the profiler saw no device time (not measured)")
-    return dict(single0=single[0].cpu().numpy(), bases=bases.cpu().numpy(),
+    return dict(single0=singles[0].cpu().numpy(),
+                singles=[x.cpu().numpy() for x in singles],
+                bases=bases.cpu().numpy(),
                 launches=launches, warm=warm, busy_ms=busy_ms,
-                stage_busy_ms=stage_busy,
-                call_ms=call_ms, route_diff=(dmax, dmean))
+                stage_busy_ms=stage_busy, kernel_ms=kernel_ms,
+                call_ms=call_ms, route_diff=(dmax, dmean),
+                batch_diff=batch_diff, before_repair=before)
 
 
 def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
@@ -965,8 +1103,10 @@ def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
                            pio.to_uint16(base))
         head = ["0", d["rgb"], d["gt"], d["baseline"]]
         ckpt = ["--persp-ckpt", PERSP_CKPT]
+        # each run builds its graphs: one capture at batch 1 serves both
+        # panoramas
         forms = (("baseline CNN", d["result_ckpt"],
-                  ckpt + ["--baseline-ckpt", BASE_CKPT], len(names)),
+                  ckpt + ["--baseline-ckpt", BASE_CKPT], 1),
                  ("baseline files", d["result_hohonet"], ckpt, 0))
         for label, result, extra, forwards in forms:
             kj.LAUNCHES = kg.LAUNCHES = 0
@@ -975,8 +1115,9 @@ def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
             launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
             print(f"cli-e2e ({label}): launches {launches} for "
                   f"{len(names)} panoramas")
-            if launches != dict(jacobi=len(names) * per_pano,
-                                group_norm=forwards * gn_per_forward):
+            if launches != dict(
+                    jacobi=graph_launches(per_pano),
+                    group_norm=graph_launches(forwards * gn_per_forward)):
                 raise AssertionError(f"cli-e2e ({label}) launches "
                                      f"{launches}")
             want = [n + ".png" for n in names] + [names[0] + ".aligned.txt"]
@@ -1091,6 +1232,7 @@ def phase_stage_a(cfg, scenes, rgbs_u8):
         shutil.rmtree(d["result"])
         stamps = {f: os.stat(os.path.join(d["views"], f)).st_mtime_ns
                   for f in os.listdir(d["views"])}
+        fresh_graphs()
         kj.LAUNCHES = 0
         log = stdio.StringIO()
         with contextlib.redirect_stdout(log):
@@ -1103,8 +1245,8 @@ def phase_stage_a(cfg, scenes, rgbs_u8):
         skipped = pipeline.extract_stage_a(files, d["views"], cfg)
         print(f"stage-a: default .jpg run: stage A extracted {skipped} (views"
               f" untouched), jacobi launches {launches} (expected "
-              f"{len(names)} x {per_pano})")
-        if skipped or launches != len(names) * per_pano:
+              f"{graph_launches(per_pano)}: one graph for both panoramas)")
+        if skipped or launches != graph_launches(per_pano):
             raise AssertionError("stage-a: stage A re-extracted or the merge "
                                  "missed the kernel")
         for name in names:
@@ -1149,8 +1291,9 @@ def phase_stage_a(cfg, scenes, rgbs_u8):
                                      f" from model mode on its PNG copy")
         print(f"stage-a: model mode on the JPEG panoramas equals the PNG "
               f"copies' run; launches {launches}")
-        want_gn = len(names) * GN_CALLS * kg.launches_per_call()
-        if launches != dict(jacobi=len(names) * per_pano, group_norm=want_gn):
+        want_gn = graph_launches(GN_CALLS * kg.launches_per_call())
+        if launches != dict(jacobi=graph_launches(per_pano),
+                            group_norm=want_gn):
             raise AssertionError(f"stage-a model mode launches {launches}")
 
         # 4. no Pillow; the probe imports nothing
@@ -1197,6 +1340,387 @@ def phase_stage_a(cfg, scenes, rgbs_u8):
     return times
 
 
+# --- the compiled and batched paths: CUDA graphs, the batched Jacobi ---
+
+
+def phase_batched(cfg, cfg_4096):
+    """The Jacobi kernel over a batch of panoramas with one mask: bit-equal
+    to the plain version and to each panorama launched alone, at every
+    level of the 2048 plan at B = 3 and at the 4096 plan's largest level at
+    B = 2; then the 2048 pyramid timed per panorama at B = 1, 4 and 24."""
+    from panodepth_torch.fusion import build_fusion_plan
+    from panodepth_torch.kernels import jacobi as kj
+
+    dev = torch.device("cuda")
+    step, reg = cfg.jacobi_step, cfg.jacobi_reg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def stack(b, lvl):
+        shape = (b, lvl.height, lvl.width)
+        buf = torch.rand(shape, generator=gen, device=dev)
+        tgt = torch.randn(shape, generator=gen, device=dev) * 0.01
+        return buf, tgt, torch.tensor(lvl.inv_cov > 0, device=dev)
+
+    levels = build_fusion_plan(cfg).levels
+    cases = [(3, lvl, "2048") for lvl in levels] + [
+        (2, build_fusion_plan(cfg_4096).levels[-1], "4096")]
+    for b, lvl, name in cases:
+        buf, tgt, cov = stack(b, lvl)
+        kj.LAUNCHES = 0
+        got = kj.cuda_jacobi(buf, tgt, cov, lvl.iterations, step, reg)
+        launches = kj.LAUNCHES
+        want = kj.jacobi_plain(buf, tgt, cov, lvl.iterations, step, reg)
+        alone = [kj.cuda_jacobi(buf[k].contiguous(), tgt[k].contiguous(), cov,
+                                lvl.iterations, step, reg) for k in range(b)]
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        each = all(torch.equal(got[k], a) for k, a in enumerate(alone))
+        print(f"jacobi batched {name} plan, B={b} {lvl.width}x{lvl.height} "
+              f"x{lvl.iterations}: bit-equal to plain {equal}, each "
+              f"panorama bit-equal to itself alone {each}, {launches} "
+              f"launches for the batch")
+        if not (equal and each) or launches != kj.launches_for(
+                lvl.height, lvl.width, lvl.iterations):
+            raise AssertionError(f"batched jacobi kernel disagrees ({name}, "
+                                 f"B={b}, {lvl.width}x{lvl.height})")
+    per_pano = {}
+    for b in (1, 4, 24):
+        stacks = [stack(b, lvl) for lvl in levels]
+
+        def pyramid():
+            for (buf, tgt, cov), lvl in zip(stacks, levels):
+                kj.cuda_jacobi(buf, tgt, cov, lvl.iterations, step, reg)
+
+        per_pano[b] = _median_ms(pyramid, runs=5, warmup=1) / b
+        del stacks
+        torch.cuda.empty_cache()
+    print(f"jacobi batched, the 2048 pyramid per panorama (CUDA events, "
+          f"median of 5): " + ", ".join(f"B={b} {ms!r} ms" for b, ms in
+                                        per_pano.items())
+          + f"; {sum(jacobi_launches(cfg))} launches per batch")
+    return per_pano
+
+
+def _timed(run, n=5):
+    """Median host time (ms) of ``run()`` ended by a synchronize, after one
+    warm-up call."""
+    times = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def _write_cli_scene(root, cfg, scenes, names):
+    """File mode's folders for ``scenes``: placeholder RGB panoramas, 16-bit
+    gt, baselines (``<raw>.depth.png``, read by result folders named
+    ``*hohonet*``) and views."""
+    from panodepth_torch import io as pio
+
+    d = {k: os.path.join(root, k) for k in ("rgb", "gt", "baseline",
+                                            "views")}
+    for path in d.values():
+        os.makedirs(path)
+    for name, sc in zip(names, scenes):
+        # stage C reads only the names of the RGB panoramas
+        pio.save_png16(os.path.join(d["rgb"], name + ".png"),
+                       np.zeros((8, 16), np.uint16))
+        pio.save_png16(os.path.join(d["gt"], name + ".png"), sc["gt"])
+        pio.save_png16(os.path.join(d["baseline"], name + ".depth.png"),
+                       sc["base"])
+        for v, view in enumerate(sc["views"]):
+            pio.save_png16(os.path.join(
+                d["views"], f"{name}.{cfg.layout.view_tag(v)}.png"), view)
+    return d
+
+
+def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
+    """The compiled merge forms against the eager merge (batch 1, staged,
+    batched at B = 4 and 24), one 4096 merge through the graph against the
+    plain path, ``merge_many`` on files, both CLIs with --batch-size and
+    --profile (and --stream on in model mode) with resume, and the
+    eager/graph times in turns."""
+    from panodepth_torch import cli, fusion, io as pio, pipeline, registration
+    from panodepth_torch.e2e import build_batched_e2e
+    from panodepth_torch.models import fastpano
+    from panodepth_torch.ops import projection
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    dev = torch.device("cuda")
+    per_pano = sum(jacobi_launches(cfg))
+    ins = [(torch.tensor(_as01(sc["base"]), device=dev),
+            torch.tensor(np.stack([_as01(v) for v in sc["views"]]),
+                         device=dev)) for sc in scenes]
+    eager = [pipeline.merge_arrays(e, p, cfg) for e, p in ins]
+
+    def same(label, got, want):
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"graphs: {label}: bit-equal {ok}")
+        if not ok:
+            raise AssertionError(f"{label} differs")
+
+    # 1. the compiled forms against the eager merge
+    fresh_graphs()
+    kj.LAUNCHES = 0
+    fn = pipeline.compiled_merge(cfg, "auto", dev)
+    for k in (0, 1, 0):
+        same(f"compiled_merge scene {k} (u16, abcd) vs merge_arrays",
+             fn(*ins[k]), eager[k])
+    print(f"graphs: compiled_merge launches {kj.LAUNCHES} (expected "
+          f"{graph_launches(per_pano)}: captured once, replayed twice)")
+    if kj.LAUNCHES != graph_launches(per_pano):
+        raise AssertionError("compiled_merge launch count")
+    reg_fn, fuse_fn = pipeline.compiled_merge_staged(cfg, "auto", dev)
+    abcd, pmaps_reg = reg_fn(*ins[0])
+    same("compiled_merge_staged vs merge_arrays and compiled_merge",
+         (fuse_fn(ins[0][0], pmaps_reg), abcd), eager[0])
+    # a graph holds the device tables it reads: clear every table cache,
+    # hand the freed memory out again, and replay
+    for cache in (fusion._on_device, fusion._inv_cov,
+                  registration._device_tables, projection._taps,
+                  fastpano._latitude_on_device):
+        cache.cache_clear()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 28,), -7.0, device=dev)
+    same("compiled_merge replayed after its tables' caches were cleared "
+         "and their memory reused", fn(*ins[1]), eager[1])
+    del junk
+    order = [0, 1, 1, 0]
+    e4 = torch.stack([ins[k][0] for k in order])
+    p4 = torch.stack([ins[k][1] for k in order])
+    kj.LAUNCHES = 0
+    fn4 = pipeline.compiled_merge_batched(cfg, "auto", dev)
+    out4, abcd4 = fn4(e4, p4)
+    batched_launches = kj.LAUNCHES
+    print(f"graphs: compiled_merge_batched B=4 launches {batched_launches} "
+          f"(expected {graph_launches(per_pano)}: {per_pano} per batch)")
+    if batched_launches != graph_launches(per_pano):
+        raise AssertionError("batched merge launch count")
+    same("compiled_merge_batched B=4 (scenes 0, 1, 1, 0), each vs its "
+         "batch-1 merge", [*out4, *abcd4],
+         [eager[k][0] for k in order] + [eager[k][1] for k in order])
+    busy, events = _device_profile(lambda: fn4(e4, p4))
+    tiles = sum(c for _, c, n in events if "jacobi_tile" in n)
+    print(f"graphs: one B=4 replay under the profiler: device busy "
+          f"{busy!r} ms, jacobi_tile launches {tiles}")
+    if busy > 0 and tiles != per_pano:
+        raise AssertionError("the batched replay did not run its kernels")
+    order24 = [0, 1] * 12
+    e24 = torch.stack([ins[k][0] for k in order24])
+    p24 = torch.stack([ins[k][1] for k in order24])
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out24, abcd24 = fn4(e24, p24)
+    torch.cuda.synchronize()
+    memory = dict(peak_gb=(torch.cuda.max_memory_allocated() - held) / 1e9,
+                  kept_gb=(torch.cuda.memory_allocated() - held) / 1e9)
+    same("compiled_merge_batched B=24, each vs its batch-1 merge",
+         [*out24, *abcd24],
+         [eager[k][0] for k in order24] + [eager[k][1] for k in order24])
+    busy, events = _device_profile(lambda: fn4(e24, p24))
+    print(f"graphs: B=24 merge capture: device memory peak "
+          f"{memory['peak_gb']!r} GB above the inputs, kept after it "
+          f"{memory['kept_gb']!r} GB (graph pool, static inputs, output); "
+          f"one replay: device busy {busy!r} ms; top device time by name "
+          f"(ms, calls):")
+    for ms, count, name in events[:8]:
+        print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
+
+    # 2. one 4096 merge through the graph against the plain path
+    sc4 = make_scene(cfg_4096, SEED)
+    e, p = (torch.tensor(_as01(sc4["base"]), device=dev),
+            torch.tensor(np.stack([_as01(v) for v in sc4["views"]]),
+                         device=dev))
+    kj.LAUNCHES = 0
+    out, abcd = pipeline.compiled_merge(cfg_4096, "auto", dev)(e, p)
+    launches_4096 = kj.LAUNCHES
+    want = pipeline.merge_arrays(e, p, cfg_4096, jacobi="torch")
+    same(f"4096 merge {tuple(out.shape)} through the graph ({launches_4096} "
+         f"launches at capture) vs the eager plain-Jacobi path", (out, abcd),
+         want)
+    m = pio_metrics(sc4, e, out, cfg_4096)
+    print(f"graphs: 4096 merge RMSE given {math.sqrt(m.mse_given)!r} -> "
+          f"result {math.sqrt(m.mse_result)!r}")
+    if not m.mse_result < m.mse_given:
+        raise AssertionError("4096 output does not beat the baseline")
+    del sc4, e, p, e24, p24, out24
+    fresh_graphs()
+
+    names = [f"pano_{i:04d}" for i in range(len(scenes))]
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_g_") as root:
+        d = _write_cli_scene(root, cfg, scenes, names)
+        single = [eager[k][0].cpu().numpy() for k in range(len(scenes))]
+
+        # 3. merge_many on files, batch 4, stream off and on, profile
+        def items(tag):
+            os.makedirs(os.path.join(root, tag))
+            its = []
+            for j, k in enumerate(order + [0]):
+                n = names[k]
+                its.append(dict(
+                    baseline=os.path.join(d["baseline"], n + ".depth.png"),
+                    pmaps=pio.pmap_filenames(d["views"], n, cfg.layout,
+                                             ext=".png"),
+                    gt=os.path.join(d["gt"], n + ".png"),
+                    out=os.path.join(root, tag, f"{j}.png")))
+            its[-1]["baseline"] += ".missing"
+            return its
+
+        many = {}
+        for tag, kw in (("off", dict(stream_u16="off")),
+                        ("on", dict(stream_u16="on")),
+                        ("profile", dict(profile=True))):
+            its = items(tag)
+            res = pipeline.merge_many(its, cfg, batch_size=4, device=dev,
+                                      log=lambda *a: None, **kw)
+            diffs = [int(np.abs(r.out_u16.astype(np.int32)
+                                - single[k].astype(np.int32)).max())
+                     for r, k in zip(res, order)]
+            reg = [r.time_reg_ms for r in res[:4]]
+            print(f"graphs: merge_many batch 4 ({tag}): u16 max diff per "
+                  f"item vs the single-panorama path {diffs}; missing item "
+                  f"quarantined {res[4] is None}; time_reg_ms {reg}, "
+                  f"time_fusion_ms {[r.time_fusion_ms for r in res[:4]]}")
+            many[tag] = max(diffs)
+            if res[4] is not None or (
+                    max(diffs) > (1 if tag == "on" else 0)):
+                raise AssertionError(f"merge_many ({tag}) differs")
+            if (tag == "profile") != all(t is not None for t in reg):
+                raise AssertionError(f"merge_many ({tag}) time_reg_ms {reg}")
+            if not all(np.array_equal(pio.read_png(it["out"]), r.out_u16)
+                       for it, r in zip(its, res[:4])):
+                raise AssertionError("merge_many wrote other files")
+
+        # 4. the CLIs: file mode --batch-size 4 --profile; model mode
+        # --batch-size 2 --profile --stream on; then resume
+        result = os.path.join(root, "result_hohonet")
+        argv = ["0", d["rgb"], d["gt"], d["baseline"], result, "--no-extract",
+                "--pmap-ext", ".png", "--views-folder", d["views"],
+                "--layout", cfg.layout_name, "--out-width",
+                str(cfg.out_width), "--batch-size", "4", "--profile"]
+        fresh_graphs()
+        kj.LAUNCHES = 0
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            if cli.main(argv) != 0:
+                raise AssertionError("cli.main returned non-zero")
+        launches = kj.LAUNCHES
+        with open(os.path.join(result, "manifest.json")) as fp:
+            man = json.load(fp)
+        ok = all(np.array_equal(pio.read_png(os.path.join(result, n + ".png")),
+                                single[k]) for k, n in enumerate(names))
+        print(f"graphs: cli file mode --batch-size 4 --profile: outputs "
+              f"equal to the single-panorama merge {ok}; jacobi launches "
+              f"{launches}; time_reg_ms {man['time_reg_ms']}, "
+              f"time_fusion_ms {man['time_fusion_ms']}; "
+              f"{[l for l in log.getvalue().splitlines() if 'time_Reg' in l]}")
+        if not ok or man["completed"] != names or len(
+                man["time_reg_ms"]) != len(names) or launches != \
+                graph_launches(per_pano):
+            raise AssertionError("cli file mode batched/profiled run")
+        kj.LAUNCHES = 0
+        with contextlib.redirect_stdout(stdio.StringIO()) as log:
+            cli.main(argv)
+        if log.getvalue().count("skip!") != len(names) or kj.LAUNCHES:
+            raise AssertionError("batched cli resume did not skip")
+
+        rgb_dir = os.path.join(root, "rgb_e2e")
+        os.makedirs(rgb_dir)
+        for n, rgb in zip(names, rgbs_u8):
+            write_png_rgb8(os.path.join(rgb_dir, n + ".png"), rgb)
+        result = os.path.join(root, "result_e2e")
+        argv = ["0", rgb_dir, d["gt"], d["baseline"], result, "--persp-ckpt",
+                PERSP_CKPT, "--baseline-ckpt", BASE_CKPT, "--batch-size", "2",
+                "--profile", "--stream", "on"]
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            if cli.main(argv) != 0:
+                raise AssertionError("cli.main returned non-zero")
+        e2e_launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+        diffs = [int(np.abs(pio.read_png(os.path.join(result, n + ".png"))
+                            .astype(np.int32)
+                            - e2e["singles"][k].astype(np.int32)).max())
+                 for k, n in enumerate(names)]
+        end = [l for l in log.getvalue().splitlines() if "time_Models" in l]
+        print(f"graphs: cli model mode --batch-size 2 --profile --stream on: "
+              f"u16 max diff vs the in-memory graph at batch 1 {diffs}; "
+              f"launches {e2e_launches}; {end}")
+        if max(diffs) > 1 or not end or "n/a" in end[0]:
+            raise AssertionError("cli model mode batched/profiled/streamed")
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        with contextlib.redirect_stdout(stdio.StringIO()) as log:
+            cli.main(argv)
+        if (log.getvalue().count("skip!") != len(names) or kj.LAUNCHES
+                or kg.LAUNCHES):
+            raise AssertionError("model-mode cli resume did not skip")
+
+    # 5. eager and graph times in turns (eager, graph, graph, eager)
+    fresh_graphs()
+    times = {}
+
+    def turn(key, run, n=5):
+        times.setdefault(key, []).append(_timed(run, n))
+
+    merge_eager = lambda: pipeline.merge_arrays(*ins[0], cfg)
+    merge_graph = lambda: pipeline.compiled_merge(cfg, "auto", dev)(*ins[0])
+    for key, run in (("merge_b1_eager", merge_eager),
+                     ("merge_b1_graph", merge_graph),
+                     ("merge_b1_graph", merge_graph),
+                     ("merge_b1_eager", merge_eager)):
+        turn(key, run)
+    fn4 = pipeline.compiled_merge_batched(cfg, "auto", dev)
+    turn("merge_b4_graph", lambda: fn4(e4, p4))
+    e24 = torch.stack([ins[k][0] for k in order24])
+    p24 = torch.stack([ins[k][1] for k in order24])
+    turn("merge_b24_graph", lambda: fn4(e24, p24), n=3)
+    full, _, _ = build_batched_e2e(persp, cfg, view_width=256,
+                                   base_model=base, base_w=512)
+    rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
+    rgbs8 = torch.cat([rgbs] * 4)
+    for key, run in (("e2e_b2_eager", lambda: full.eager(rgbs)),
+                     ("e2e_b2_graph", lambda: full(rgbs)),
+                     ("e2e_b2_graph", lambda: full(rgbs)),
+                     ("e2e_b2_eager", lambda: full.eager(rgbs))):
+        turn(key, run)
+    turn("e2e_b8_graph", lambda: full(rgbs8), n=3)
+    runs = dict(merge_b1_eager=(merge_eager, 1), merge_b1_graph=(
+        merge_graph, 1), merge_b4_graph=(lambda: fn4(e4, p4), 4),
+        merge_b24_graph=(lambda: fn4(e24, p24), 24),
+        e2e_b2_eager=(lambda: full.eager(rgbs), 2),
+        e2e_b2_graph=(lambda: full(rgbs), 2),
+        e2e_b8_graph=(lambda: full(rgbs8), 8))
+    table = {}
+    for key, (run, b) in runs.items():
+        host = float(np.median(times[key]))
+        busy, _ = _device_profile(run)
+        table[key] = dict(ms_per_pano=host / b, turns=times[key],
+                          busy_ms_per_pano=busy / b,
+                          idle_share=(1 - busy / host) if busy > 0 else None)
+        print(f"graphs A/B {key}: {host / b!r} ms per panorama (host clock "
+              f"to synchronize, median of the turns {times[key]!r} ms per "
+              f"call), device busy {busy / b!r} ms per panorama, idle share "
+              f"{table[key]['idle_share']!r}")
+    return dict(batched_launches=batched_launches,
+                launches_4096=launches_4096, many=many, memory_b24=memory,
+                e2e_cli_launches=e2e_launches, table=table)
+
+
+def pio_metrics(scene, emap, out, cfg):
+    """The u16 output scored against the scene's gt."""
+    from panodepth_torch import paired_metrics
+
+    gt = torch.tensor(_as01(scene["gt"]), device=emap.device)
+    return paired_metrics(gt, emap, out.to(torch.float32) / 65535.0,
+                          align_way=cfg.align_way, cap_depth=cfg.cap_depth,
+                          zenith_range=cfg.zenith_range)
+
+
 def main():
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -1210,9 +1734,9 @@ def main():
         name, smi = phase_device()
     with Phase("build"):
         phase_build()
+    cfg_4096 = MergeConfig(layout_name="5fold_leres", out_width=4096)
     with Phase("kernel"):
-        jac = phase_kernel(cfg, MergeConfig(layout_name="5fold_leres",
-                                            out_width=4096))
+        jac = phase_kernel(cfg, cfg_4096)
     with Phase("merge"):
         scenes = [make_scene(cfg, SEED + i) for i in range(2)]
         merged0, merge_launches, warm_ms = phase_merge(cfg, scenes[0])
@@ -1231,6 +1755,10 @@ def main():
         phase_cli_e2e(rgbs, scenes[0]["gt"], e2e)
     with Phase("stage-a"):
         stage_a = phase_stage_a(cfg, scenes, rgbs)
+    with Phase("batched"):
+        batched = phase_batched(cfg, cfg_4096)
+    with Phase("graphs"):
+        graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs, e2e)
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
@@ -1239,7 +1767,11 @@ def main():
         ms=jac["ms"], kernel_ms=jac["ms"], plain_ms=jac["plain_ms"],
         bound_ms=jac["bound_ms"], bound_by=jac["bound_by"], library_ms=None,
         launches_by_path=dict(merge=merge_launches,
-                              e2e=e2e["launches"]["jacobi"]),
+                              e2e=e2e["launches"]["jacobi"],
+                              merge_batched=graphs["batched_launches"],
+                              e2e_graph=e2e["launches"]["jacobi"]),
+        ms_per_pano_by_batch=batched,
+        device_ms_in_e2e_graph=e2e["kernel_ms"].get("jacobi"),
         levels=jac["levels"]), dict(
         name="group_norm", route="cuda",
         source="panodepth_torch/csrc/groupnorm.cu",
@@ -1249,11 +1781,13 @@ def main():
         bound_by=gn["bound_by"], library_ms=gn["library_ms"],
         device_ms=gn["device_ms"], library_device_ms=gn["library_device_ms"],
         calls_per_forward=gn["calls"],
-        launches_by_path=dict(e2e=e2e["launches"]["group_norm"]))]
+        device_ms_in_e2e_graph=e2e["kernel_ms"].get("group_norm"),
+        launches_by_path=dict(e2e=e2e["launches"]["group_norm"],
+                              e2e_graph=e2e["launches"]["group_norm"]))]
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
-          f"stage A: {stage_a!r}; card: {smi}")
+          f"stage A: {stage_a!r}; graphs: {graphs!r}; card: {smi}")
     print(f"chip_smoke wall time: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

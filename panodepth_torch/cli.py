@@ -37,7 +37,6 @@ _NOT_PORTED = {
     "latency": "--latency (the view-parallel single-request graph)",
     "latency_halo": "--latency-halo (the view-parallel single-request graph)",
     "persp_int8": "--persp-int8 (the int8 perspective graph, GN checkpoints)",
-    "stream": "--stream (u8/u16 transfers to the device)",
 }
 # flags that only the model mode takes
 _MODEL_MODE = ("baseline_ckpt", "view_width", "base_width", "infer_norm",
@@ -80,9 +79,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="process the round-robin slice items[I::N] of the "
                         "(filtered) list; resume still applies per item")
     p.add_argument("--batch-size", type=int, default=1,
-                   help="model mode: panoramas per call (in file mode "
-                        "stage A batches at least 4 panoramas; the batched "
-                        "merge is not ported yet)")
+                   help="panoramas per device call: the streamed batched "
+                        "merge in file mode (stage A batches at least 4), "
+                        "the e2e graph's batch in model mode")
+    p.add_argument("--profile", action="store_true",
+                   help="time registration apart from fusion (file mode) "
+                        "or the models apart from registration+fusion "
+                        "(model mode): two graphs with a host sync between")
+    p.add_argument("--stream", default="auto", choices=["auto", "on", "off"],
+                   help="send integer-source inputs to the device at their "
+                        "own width (u16 maps, u8 RGB) and normalize there; "
+                        "auto = off")
     p.add_argument("--persp-ckpt", default=None,
                    help="model mode: the perspective CNN's checkpoint "
                         "(*.params.npz beside its <model>.config.json)")
@@ -107,7 +114,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model mode: the perspective net's 99th percentile; "
                         "only the exact sort is ported")
     late = p.add_argument_group("not ported yet (refused)")
-    late.add_argument("--profile", action="store_true")
     for name in _NOT_PORTED:  # with or without a value, as in JAX
         late.add_argument("--" + name.replace("_", "-"), nargs="?",
                           const=True, default=None)
@@ -118,16 +124,13 @@ def _refusal(args) -> str | None:
     for name, what in _NOT_PORTED.items():
         if getattr(args, name) is not None:
             return f"{what} is not ported yet"
-    if args.profile:
-        return "--profile (the stage-separated time split) is not ported yet"
+    if args.batch_size < 1:
+        return f"--batch-size must be >= 1, got {args.batch_size}"
     if not args.persp_ckpt:
         for name in _MODEL_MODE:
             if getattr(args, name) is not None:
                 return (f"--{name.replace('_', '-')} applies to the "
                         f"on-device model mode only; pass --persp-ckpt")
-        if args.batch_size != 1:
-            return ("--batch-size > 1 in file mode (the batched merge) is "
-                    "not ported yet")
         return None
     if args.base_width and not args.baseline_ckpt:
         return ("--base-width resizes a --baseline-ckpt model's input; "
@@ -139,8 +142,6 @@ def _refusal(args) -> str | None:
     if args.p99 not in (None, "sort"):
         return (f"--p99 {args.p99} is a TPU selection and is not ported; "
                 f"use sort")
-    if args.batch_size < 1:
-        return f"--batch-size must be >= 1, got {args.batch_size}"
     return None
 
 
@@ -161,7 +162,8 @@ def main(argv=None) -> int:
             baseline_folder=args.baseline_folder, dataset=args.dataset,
             view_width=args.view_width, limit=args.limit,
             include=args.include, exclude=args.exclude, shard=args.shard,
-            batch_size=args.batch_size, jacobi=args.jacobi,
+            profile=args.profile, batch_size=args.batch_size,
+            stream=args.stream, jacobi=args.jacobi,
             extract_dtype=args.extract_dtype or "auto",
             infer_norm=args.infer_norm or "auto",
             base_width=args.base_width, device=args.device,
@@ -175,7 +177,8 @@ def main(argv=None) -> int:
         views_folder=args.views_folder, dataset=args.dataset,
         extract_rgb_views=not args.no_extract,
         pmap_ext=args.pmap_ext, limit=args.limit, include=args.include,
-        exclude=args.exclude, shard=args.shard, jacobi=args.jacobi,
+        exclude=args.exclude, shard=args.shard, profile=args.profile,
+        batch_size=args.batch_size, stream=args.stream, jacobi=args.jacobi,
         device=args.device,
     )
     return 0

@@ -1,4 +1,5 @@
-// Damped Jacobi relaxation toward a target Laplacian, for Hopper (sm_90a).
+// Damped Jacobi relaxation toward a target Laplacian, for Hopper (sm_90a),
+// over a batch of panoramas that share one coverage mask.
 //
 // Replaces the TPU kernel panodepth/kernels/jacobi.py::pallas_jacobi
 // (_pallas_jacobi_impl: the single-block branch at jacobi.py:98 and the
@@ -12,8 +13,8 @@
 //   B'  = cov ? clamp(upd, 0, 1) : B
 //
 // with the four taps at flat indices (i-1), (i+1), (i-W), (i+W) modulo
-// N = H*W: the reference's flat-index seam wrap into the adjacent row
-// (PARITY.md quirk #19) and the vertical roll.  Because the taps wrap like
+// N = H*W of each panorama: the reference's flat-index seam wrap into the
+// adjacent row (PARITY.md quirk #19) and the vertical roll.  Because the taps wrap like
 // the plain version's, no edge precondition is needed (the Pallas kernel's
 // zero y-halo needed one, jacobi.py:127-138); every covered pixel, in row 0,
 // row H-1, column 0 or column W-1 too, matches the plain version.
@@ -55,6 +56,13 @@
 // per level by kernels/jacobi.py::plan_for: 128x128 windows 16 iterations
 // deep where the level is large (the halo recomputed ~1.8x the interior),
 // more and smaller blocks where it is small and the card would idle.
+//
+// A batch (the counterpart of jax.vmap over pallas_jacobi in the batched
+// merge and the e2e fuse stage) is the grid's z axis: block z relaxes
+// panorama z, whose buffer and target start z*H*W floats in, and reads the
+// one coverage mask of the level.  The window walk and its modulo-N wrap
+// stay per panorama, so each panorama's result is the bits it gets alone,
+// and one launch sequence serves the whole batch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -88,10 +96,11 @@ __device__ __forceinline__ float pick(unsigned bit, float a, float b) {
   return r;
 }
 
-// `steps` (1..halo) iterations of one (32*C) x (warps*R) window; writes its
-// interior.  Dynamic shared memory: the edge buffer, 2 buffers x (top,
-// bottom) x warps x C x 32 floats.  Needs (h + warps*R + 1) * w < 2^31
-// (checked by the caller).
+// `steps` (1..halo) iterations of one (32*C) x (warps*R) window of
+// panorama blockIdx.z; writes its interior.  Dynamic shared memory: the
+// edge buffer, 2 buffers x (top, bottom) x warps x C x 32 floats.  Needs
+// (h + warps*R + 1) * w < 2^31 (checked by the caller); the panorama's
+// offset is 64-bit.
 template <int C, int R>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 jacobi_tile(const float* __restrict__ src, float* __restrict__ dst,
@@ -104,6 +113,10 @@ jacobi_tile(const float* __restrict__ src, float* __restrict__ dst,
   const int warps = blockDim.x >> 5;
   const int win_w = 32 * C, win_h = warps * R;
   const int n = h * w;
+  const size_t pano = static_cast<size_t>(blockIdx.z) * n;
+  src += pano;
+  dst += pano;
+  tgt += pano;
   const int y0 = blockIdx.y * (win_h - 2 * halo) - halo;
   const int x0 = blockIdx.x * (win_w - 2 * halo) - halo;
   const int lx0 = lane * C, ly0 = g * R;
@@ -183,12 +196,12 @@ jacobi_tile(const float* __restrict__ src, float* __restrict__ dst,
 
 template <int C, int R>
 int run(const float* buf, float* out, float* scratch, const float* target,
-        const uint8_t* covered, int h, int w, int iterations, float step,
-        float omr, float reg, int warps, int halo, int smem, int opt_in,
-        cudaStream_t s) {
+        const uint8_t* covered, int batch, int h, int w, int iterations,
+        float step, float omr, float reg, int warps, int halo, int smem,
+        int opt_in, cudaStream_t s) {
   const int win_w = 32 * C, win_h = warps * R;
   const dim3 grid((w + win_w - 2 * halo - 1) / (win_w - 2 * halo),
-                  (h + win_h - 2 * halo - 1) / (win_h - 2 * halo));
+                  (h + win_h - 2 * halo - 1) / (win_h - 2 * halo), batch);
   // the plan's byte count must hold the edge buffer
   if (smem < 0 ||
       static_cast<size_t>(smem) < sizeof(float) * 4 * warps * C * 32)
@@ -217,8 +230,9 @@ int run(const float* buf, float* out, float* scratch, const float* target,
 
 }  // namespace
 
-// Runs `iterations` iterations on `stream` with the launch plan (cols C,
-// rows R, warps W, halo): ceil(iterations / halo) launches of the
+// Runs `iterations` iterations of each of `batch` panoramas (buf, out,
+// scratch and target hold batch x h x w floats; covered one h x w mask) on
+// `stream` with the launch plan (cols C, rows R, warps W, halo): ceil(iterations / halo) launches of the
 // (32*C) x (W*R) window, `halo` iterations each and the rest in the last,
 // each with `smem` bytes of dynamic shared memory (kernels/jacobi.py,
 // JacobiPlan.smem_bytes), granted first with `opt_in` above 48 KB.
@@ -228,10 +242,12 @@ int run(const float* buf, float* out, float* scratch, const float* target,
 // rounded to float here, as PyTorch rounds a Python scalar, with 1 - reg
 // formed in double first.  Returns the first CUDA error (0 on success;
 // cudaErrorInvalidValue for a plan this library has no kernel for, or
-// whose `smem` does not hold the edge buffer).
+// whose `smem` does not hold the edge buffer, or a batch outside
+// 1..65535, the grid's z limit).
 extern "C" int panodepth_jacobi(const float* buf, float* out, float* scratch,
                                 const float* target, const uint8_t* covered,
-                                int h, int w, int iterations, double step,
+                                int batch, int h, int w, int iterations,
+                                double step,
                                 double reg, int cols, int rows, int warps,
                                 int halo, int smem, int opt_in,
                                 void* stream) {
@@ -239,13 +255,15 @@ extern "C" int panodepth_jacobi(const float* buf, float* out, float* scratch,
   const float f_omr = static_cast<float>(1.0 - reg);
   const float f_reg = static_cast<float>(reg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (warps < 1 || warps > kMaxWarps || halo < 1 || iterations < 1 ||
+  if (batch < 1 || batch > 65535 || warps < 1 || warps > kMaxWarps ||
+      halo < 1 || iterations < 1 ||
       32 * cols <= 2 * halo || warps * rows <= 2 * halo)
     return static_cast<int>(cudaErrorInvalidValue);
 #define PANODEPTH_JACOBI_PLAN(C, R)                                          \
   if (cols == C && rows == R)                                                \
-    return run<C, R>(buf, out, scratch, target, covered, h, w, iterations,   \
-                     f_step, f_omr, f_reg, warps, halo, smem, opt_in, s);
+    return run<C, R>(buf, out, scratch, target, covered, batch, h, w,        \
+                     iterations, f_step, f_omr, f_reg, warps, halo, smem,    \
+                     opt_in, s);
   PANODEPTH_JACOBI_PLAN(2, 4)
   PANODEPTH_JACOBI_PLAN(4, 4)
 #undef PANODEPTH_JACOBI_PLAN

@@ -26,11 +26,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import graphs
 from . import io as pio
 from . import metrics as pmetrics
 from . import registration
 from .config import MergeConfig
-from .fusion import build_fusion_plan, fuse
+from .fusion import build_fusion_plan, fuse_batched
 from .kernels import groupnorm as kgroupnorm
 from .kernels import jacobi as kjacobi
 from .models import norm as pnorm
@@ -38,7 +39,9 @@ from .models import weights
 from .models.perspective import predict_depth01
 from .ops.projection import extract_group, view_groups
 from .ops.resize import resize_bilinear, resize_bilinear_nhwc
-from .pipeline import resolve_device, true_f32
+from .pipeline import (_as01, _double_buffered, _host_sync, _runs,
+                       _to_device_async, _to_host_async, resolve_device,
+                       true_f32)
 
 EXTRACT_DTYPES = ("auto", "f32")
 
@@ -48,16 +51,6 @@ def _round32(v: int) -> int:
     15 views of ``5fold_leres`` at view width 256 are 247x256 and run the
     perspective CNN at 256x256, its training resolution."""
     return max(32, -(-v // 32) * 32)
-
-
-def _as01_img(x):
-    """Integer images to f32 0~1 (uint8 / 255, uint16 / 65535); floats pass
-    through."""
-    if x.dtype == torch.uint8:
-        return x.to(torch.float32) / 255.0
-    if x.dtype == torch.uint16:
-        return x.to(torch.float32) / 65535.0
-    return x
 
 
 def _resolve_extract_dtype(mode: str) -> str:
@@ -72,10 +65,10 @@ def _resolve_extract_dtype(mode: str) -> str:
 
 
 def _stack_if_uniform(maps):
-    """Per-view maps as one (V, h, w) tensor when they share a shape (one
-    gather per stage instead of one per view), else the list."""
+    """Per-view (B, h, w) maps as one (B, V, h, w) tensor when they share a
+    shape (one gather per stage instead of one per view), else the list."""
     if len({tuple(m.shape) for m in maps}) == 1:
-        return torch.stack(maps)
+        return torch.stack(maps, 1)
     return list(maps)
 
 
@@ -86,18 +79,18 @@ def full_pipeline(rgb, persp_model, base_model=None, baseline=None,
 
     Either a panoramic baseline model or a precomputed ``baseline`` map must
     be given.  The perspective CNN runs on each view resized to multiples of
-    32, the baseline CNN at ``base_w`` wide: :func:`build_batched_e2e` on a
-    batch of one.
+    32, the baseline CNN at ``base_w`` wide: the eager stages of
+    :func:`build_batched_e2e` on a batch of one.
     """
+    dev = resolve_device(device)
     _, models_stage, fuse_stage = build_batched_e2e(
         persp_model, cfg, view_width=view_width, base_model=base_model,
-        base_w=base_w, jacobi=jacobi, device=device)
-    rgb = torch.as_tensor(rgb)
-    if baseline is None:
-        bases, pmaps = models_stage(rgb[None])
-    else:
-        bases, pmaps = models_stage(rgb[None], torch.as_tensor(baseline)[None])
-    out_u16, abcd = fuse_stage(bases, pmaps)
+        base_w=base_w, jacobi=jacobi, device=dev)
+    args = [torch.as_tensor(rgb, device=dev)[None]]
+    if baseline is not None:
+        args.append(torch.as_tensor(baseline, device=dev)[None])
+    bases, pmaps = models_stage.eager(*args)
+    out_u16, abcd = fuse_stage.eager(bases, pmaps)
     return out_u16[0], abcd[0], bases[0], [p[0] for p in pmaps]
 
 
@@ -123,14 +116,23 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
                       groupnorm: str = "auto", device="cuda"):
     """Batched e2e stages over (B, H, W, 3) RGB stacks (plus a (B, h, w)
     baseline stack when ``base_model`` is None).  Returns
-    ``(full, models_stage, fuse_stage)``:
+    ``(full, models_stage, fuse_stage)``, each a ``graphs.Graphed``:
+    replayed from a CUDA graph per input shape on the card (the
+    counterpart of the JAX package's jitted stages), eager on the CPU, and
+    eager anywhere as ``.eager``:
 
     - ``models_stage(rgbs[, baselines]) -> (baselines, pmaps)``: the
-      baseline CNN, view extraction and the perspective CNN, every view of
-      every panorama of the batch in one CNN call per view shape;
+      baseline CNN, view extraction and the perspective CNN;
     - ``fuse_stage(baselines, pmaps) -> (out_u16, abcd)``: registration
-      and fusion, one panorama after another;
+      (one panorama at a time) and fusion (the whole batch at once, the
+      counterpart of the JAX package's vmapped stage);
     - ``full(rgbs[, baselines]) -> (out_u16, baselines)``: both.
+
+    Each net runs one panorama per call: FastPanoNet on one panorama, the
+    perspective CNN on one panorama's views of a shape.  cuDNN then sees
+    the shapes of a batch of one at any batch size, and a panorama's output
+    does not depend on its batch.  Inside a graph the extra launches cost
+    no host time.
 
     The nets are moved to ``device``; ``groupnorm`` is the route of the
     baseline CNN's GroupNorms and ``jacobi`` that of the relaxation
@@ -147,51 +149,61 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     plan = build_fusion_plan(cfg)
     groups = list(view_groups(layout, view_width).items())
 
-    # TF32 off while a stage runs, the caller's flags back after it
+    def baseline_of(rgb01):
+        """The baseline CNN on one panorama (1, H, W, 3)."""
+        rb = resize_bilinear_nhwc(rgb01, (base_w // 2, base_w))
+        # the route is set per call: graphs built with other routes may
+        # share this net
+        return pnorm.set_route(base_model, groupnorm)(rb)
+
+    def depths_of(views):
+        """The perspective CNN on one panorama's views of a shape (n, h, w,
+        3), at multiples of 32 and back."""
+        h, w = views.shape[1:3]
+        nh, nw = _round32(h), _round32(w)
+        if (nh, nw) != (h, w):
+            views = resize_bilinear_nhwc(views, (nh, nw))
+        depths = predict_depth01(persp_model, views)
+        if (nh, nw) != (h, w):
+            depths = resize_bilinear(depths, (h, w))
+        return depths
+
+    # TF32 off while a stage runs (and so while it is captured), the
+    # caller's flags back after it
     @true_f32()
     def models_stage(rgbs, baselines=None):
-        rgbs01 = _as01_img(torch.as_tensor(rgbs, device=dev))
+        rgbs01 = _as01(rgbs)
         b = rgbs01.shape[0]
         if baselines is None:
-            rb = resize_bilinear_nhwc(rgbs01, (base_w // 2, base_w))
-            # the route is set per call: graphs built with other routes may
-            # share this net
-            baselines = pnorm.set_route(base_model, groupnorm)(rb)
+            baselines = torch.cat([baseline_of(rgbs01[k:k + 1])
+                                   for k in range(b)])
         else:
-            baselines = _as01_img(torch.as_tensor(baselines, device=dev))
+            baselines = _as01(baselines)
         pmaps: List[torch.Tensor] = [None] * layout.num_views  # type: ignore
         for (h, w), idxs in groups:
             views = extract_group(rgbs01, layout.fovs[idxs], (h, w))
-            flat = views.reshape(b * len(idxs), h, w, 3)
-            nh, nw = _round32(h), _round32(w)
-            if (nh, nw) != (h, w):
-                flat = resize_bilinear_nhwc(flat, (nh, nw))
-            depths = predict_depth01(persp_model, flat)
-            if (nh, nw) != (h, w):
-                depths = resize_bilinear(depths, (h, w))
-            depths = depths.reshape(b, len(idxs), h, w)
+            depths = torch.stack([depths_of(views[k]) for k in range(b)])
             for j, i in enumerate(idxs):
                 pmaps[i] = depths[:, j]
         return baselines, pmaps
 
     @true_f32()
     def fuse_stage(baselines, pmaps):
-        outs, abcds = [], []
-        for k in range(baselines.shape[0]):
-            pm = _stack_if_uniform([p[k] for p in pmaps])
-            abcd = registration.register_views(baselines[k], pm, cfg)
-            out_u16, _ = fuse(baselines[k], pm, plan, jacobi_fn=relax,
-                              abcd=abcd)
-            outs.append(out_u16)
-            abcds.append(abcd)
-        return torch.stack(outs), torch.stack(abcds)
+        pm = _stack_if_uniform(pmaps)
+        abcd = registration.register_views_batched(baselines, pm, cfg)
+        out_u16, _ = fuse_batched(baselines, pm, plan, jacobi_fn=relax,
+                                  abcd=abcd)
+        return out_u16, abcd
 
     def full(*args):
         baselines, pmaps = models_stage(*args)
         out_u16, _ = fuse_stage(baselines, pmaps)
         return out_u16, baselines
 
-    return full, models_stage, fuse_stage
+    nets = (persp_model, base_model)
+    return (graphs.Graphed(full, dev, nets, name="e2e.full"),
+            graphs.Graphed(models_stage, dev, nets, name="e2e.models_stage"),
+            graphs.Graphed(fuse_stage, dev, name="e2e.fuse_stage"))
 
 
 def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
@@ -199,18 +211,28 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                   baseline_ckpt: Optional[str] = None,
                   baseline_folder: Optional[str] = None,
                   dataset: str = "matterport", view_width=None, limit=None,
-                  include=None, exclude=None, shard=None, batch_size: int = 1,
-                  jacobi: str = "auto", extract_dtype: str = "auto",
-                  infer_norm: str = "auto", base_width=None, log=print,
-                  device="cuda"):
+                  include=None, exclude=None, shard=None,
+                  profile: bool = False, batch_size: int = 1,
+                  stream: str = "auto", jacobi: str = "auto",
+                  extract_dtype: str = "auto", infer_norm: str = "auto",
+                  base_width=None, log=print, device="cuda"):
     """The model-mode batch: RGB -> models -> registration -> fusion.
 
     The perspective checkpoint is mandatory; the baseline comes from a
     second checkpoint or from baseline files (the reference's naming).
-    ``batch_size`` panoramas run per call, the last chunk padded by
-    repetition; decoding the next panorama and writing PNGs overlap the
-    device work.  Writes ``<raw>.png`` and, where a gt exists,
-    ``<raw>.aligned.txt``; skips a panorama whose ``<raw>.png`` exists.
+    ``batch_size`` panoramas run per call of the graph, the last chunk
+    padded by repetition (the padding discarded); batch k+1 is submitted
+    before batch k is read back, decoding the next panoramas and writing
+    PNGs overlap the device work.  Writes ``<raw>.png`` and, where a gt
+    exists, ``<raw>.aligned.txt``; skips a panorama whose ``<raw>.png``
+    exists.
+
+    ``profile`` runs the models and registration+fusion as two separately
+    timed graphs with a host sync between (the reference's time_Reg /
+    time_Laplacian split, Main.cpp:667-681) and logs each item's split.
+    ``stream`` — "on"/"off"/"auto": send integer-source inputs to the
+    device at their own width (uint8 RGB, uint16 baselines) and normalize
+    there; "auto" is off, the JAX package's choice off the TPU.
     ``infer_norm`` is the GroupNorm output type: ``auto`` is f32, as the
     JAX package runs off the TPU, or ``f32`` / ``bf16``.  Returns the
     metrics of the gt-scored panoramas.
@@ -218,6 +240,8 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
     if infer_norm not in ("auto", "f32", "bf16"):
         raise ValueError(f"infer_norm must be auto, f32 or bf16, "
                          f"got {infer_norm!r}")
+    if stream not in ("auto", "on", "off"):
+        raise ValueError(f"stream must be auto, on or off, got {stream!r}")
     if batch_size < 1:
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     dev = resolve_device(device)
@@ -232,7 +256,7 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
         base_model, base_arch = load_model_checkpoint(baseline_ckpt,
                                                       norm_dtype, device=dev)
         base_w = base_width or base_arch.get("pano_width", 512)
-    full, _, _ = build_batched_e2e(
+    full, models_stage, fuse_stage = build_batched_e2e(
         persp_model, cfg, view_width=view_width, base_model=base_model,
         base_w=base_w, extract_dtype=extract_dtype, jacobi=jacobi,
         device=dev)
@@ -241,18 +265,27 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                                  include, exclude, limit, shard)
     os.makedirs(result_folder, exist_ok=True)
     log(f"[run_batch_e2e] {len(rgb_files)} panoramas, on-device models, "
-        f"batch {batch_size}")
+        f"batch {batch_size}" + (", profiled stages" if profile else ""))
+    stream_on = stream == "on"
+
+    def load(f):
+        """Decode, keeping the source's integer width when streaming."""
+        if stream_on:
+            r = pio.load_image_int(f)
+            if r is not None:
+                return r[0]
+        return pio.load_image01(f).astype(np.float32)
 
     def decode(f):
         raw = pio.raw_name(f)
-        rgb = pio.load_image01(f).astype(np.float32)
+        rgb = load(f)
         if rgb.ndim == 2:
             rgb = np.stack([rgb] * 3, -1)
         rgb = rgb[..., :3]
         base = None
         if base_model is None:
-            base = pio.load_image01(pio.baseline_filename(
-                baseline_folder, raw, result_folder))
+            base = load(pio.baseline_filename(baseline_folder, raw,
+                                              result_folder))
             if base.ndim == 3:
                 base = base[..., 0]
         gt_file = pio.gt_filename(gt_folder, raw, dataset)
@@ -268,62 +301,86 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
         todo.append((i, f, raw))
 
     all_metrics: List[pmetrics.Metrics] = []
-    times: List[float] = []
+    models_times: List[float] = []
+    fuse_times: List[float] = []
     writes = []
 
-    def run(chunk):
-        """chunk: list of (i, raw, rgb, baseline, gt); padded to the batch."""
+    def submit(chunk):
+        """chunk: list of (i, raw, rgb, baseline, gt); padded to the batch
+        by repeating its last item."""
         n = len(chunk)
         pad = [chunk[-1]] * (batch_size - n)
-        args = [torch.as_tensor(np.stack([c[2] for c in chunk + pad]),
-                                device=dev)]
+        args = [_to_device_async(np.stack([c[2] for c in chunk + pad]), dev)]
         if base_model is None:
-            args.append(torch.as_tensor(np.stack([c[3] for c in chunk + pad]),
-                                        device=dev))
+            args.append(_to_device_async(
+                np.stack([c[3] for c in chunk + pad]), dev))
         t0 = time.monotonic()
-        out_u16, baselines = full(*args)
-        out_np = out_u16[:n].cpu().numpy()
-        bases = baselines[:n]
-        times.extend([(time.monotonic() - t0) * 1000 / n] * n)
+        times = None
+        if profile:
+            baselines, pmaps = models_stage(*args)
+            _host_sync(pmaps[0][:1, :1, :1])
+            t1 = time.monotonic()
+            out_u16, _ = fuse_stage(baselines, pmaps)
+            _host_sync(out_u16[:1, :1, :1])
+            times = ((t1 - t0) * 1000 / n, (time.monotonic() - t1) * 1000 / n)
+        else:
+            out_u16, baselines = full(*args)
+        # the copies back wait for this batch only, not for the next one
+        host, done = _to_host_async((out_u16[:n], baselines[:n]), dev)
+        return chunk, host, done, t0, times
+
+    def collect(pending):
+        chunk, (out_u16, bases), done, t0, times = pending
+        if done is not None:
+            done.synchronize()
+        out_np = out_u16.numpy()
+        models_ms, fuse_ms = times or (
+            None, (time.monotonic() - t0) * 1000 / len(chunk))
+        if models_ms is not None:
+            models_times.extend([models_ms] * len(chunk))
+        fuse_times.extend([fuse_ms] * len(chunk))
         for j, (i, raw, _, _, gt) in enumerate(chunk):
             writes.append(pool.submit(
                 pio.save_png16, os.path.join(result_folder, raw + ".png"),
                 out_np[j]))
-            if gt is None:
-                continue
-            m = pmetrics.paired_metrics(
-                torch.as_tensor(gt, device=dev), bases[j],
-                torch.as_tensor(out_np[j].astype(np.float32)
-                                / np.float32(65535.0), device=dev),
-                align_way=cfg.align_way, cap_depth=cfg.cap_depth,
-                zenith_range=cfg.zenith_range)
-            m.save(os.path.join(result_folder, raw + ".aligned.txt"))
-            m.print()
-            all_metrics.append(m)
+            if gt is not None:
+                m = pmetrics.paired_metrics(
+                    torch.as_tensor(gt, device=dev),
+                    bases[j].to(dev),
+                    torch.as_tensor(out_np[j].astype(np.float32)
+                                    / np.float32(65535.0), device=dev),
+                    align_way=cfg.align_way, cap_depth=cfg.cap_depth,
+                    zenith_range=cfg.zenith_range)
+                m.save(os.path.join(result_folder, raw + ".aligned.txt"))
+                m.print()
+                all_metrics.append(m)
+            if profile:
+                log(f"{i}/{len(rgb_files)} {raw}: models {models_ms:.1f} ms, "
+                    f"reg+fusion {fuse_ms:.1f} ms")
 
-    pool = ThreadPoolExecutor(max_workers=2)
-    batch, cur_shape = [], None
-    try:
+    def decoded():
+        """(input shape, chunk item) of each panorama to do, the next one
+        decoding on the pool while this one is batched."""
         nxt = pool.submit(decode, todo[0][1]) if todo else None
-        for k, (i, f, raw) in enumerate(todo):
+        for k, (i, _, raw) in enumerate(todo):
             rgb, base, gt = nxt.result()
             nxt = (pool.submit(decode, todo[k + 1][1])
                    if k + 1 < len(todo) else None)
-            shape = (rgb.shape, None if base is None else base.shape)
-            # a batch ends when it is full or the input shape changes
-            if batch and (shape != cur_shape or len(batch) == batch_size):
-                run(batch)
-                batch = []
-            cur_shape = shape
-            batch.append((i, raw, rgb, base, gt))
-        if batch:
-            run(batch)
+            yield ((rgb.shape, rgb.dtype.str,
+                    None if base is None else (base.shape, base.dtype.str)),
+                   (i, raw, rgb, base, gt))
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    try:
+        _double_buffered(_runs(decoded(), batch_size), submit, collect)
         for job in writes:
             job.result()
     finally:
         pool.shutdown(wait=True)
-    if times:
-        log(f"[run_batch_e2e] done: {len(times)} panoramas, "
-            f"time_Models_avg:n/a (one call) "
-            f"time_Fuse_avg:{np.mean(times):.1f}")
+    if fuse_times:
+        split = (f"time_Models_avg:{np.mean(models_times):.1f} "
+                 if models_times else
+                 "time_Models_avg:n/a (fused graph; use --profile) ")
+        log(f"[run_batch_e2e] done: {len(fuse_times)} panoramas, " + split
+            + f"time_Fuse_avg:{np.mean(fuse_times):.1f}")
     return all_metrics

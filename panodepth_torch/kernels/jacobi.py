@@ -24,26 +24,30 @@ LAUNCHES = 0
 
 
 def lap4_refwrap(img: torch.Tensor) -> torch.Tensor:
-    """5-point Laplacian ``c - 0.25*(((l + r) + u) + d)`` of an (H, W) map
-    with the reference's flat-index taps.
+    """5-point Laplacian ``c - 0.25*(((l + r) + u) + d)`` of an (H, W) map,
+    or of each map of a (B, H, W) stack, with the reference's flat-index
+    taps.
 
     The reference reads taps as ``buffer[yy * width + xx]`` (Depth.cpp:
     1696-1701), so the left tap of column 0 is the previous row's last
     pixel and the right tap of column W-1 the next row's first (PARITY.md
-    quirk #19); rows roll vertically.  All four taps are flat rolls.
+    quirk #19); rows roll vertically.  All four taps are flat rolls of each
+    map on its own, never across the maps of a stack.
     """
-    h, w = img.shape
-    flat = img.reshape(-1)
-    left = torch.roll(flat, 1).view(h, w)
-    right = torch.roll(flat, -1).view(h, w)
-    up = torch.roll(flat, w).view(h, w)
-    down = torch.roll(flat, -w).view(h, w)
+    h, w = img.shape[-2:]
+    flat = img.reshape(-1, h * w)
+    left = torch.roll(flat, 1, 1).view(img.shape)
+    right = torch.roll(flat, -1, 1).view(img.shape)
+    up = torch.roll(flat, w, 1).view(img.shape)
+    down = torch.roll(flat, -w, 1).view(img.shape)
     return img - 0.25 * (left + right + up + down)
 
 
 def jacobi_plain(buf, target, covered, iterations, step, reg):
     """Jacobi relaxation toward the target Laplacian (Depth.cpp:1680-1717),
-    in the op order of the TPU kernel's ``_step`` (jacobi.py:44-50)."""
+    in the op order of the TPU kernel's ``_step`` (jacobi.py:44-50).
+    ``buf``/``target`` are (H, W) or a (B, H, W) stack; ``covered`` is
+    (H, W), shared by the stack."""
     one_minus_reg = 1.0 - reg
     for _ in range(iterations):
         upd = buf + (target - lap4_refwrap(buf)) * step
@@ -59,7 +63,7 @@ def _library():
     lib = _build.load("jacobi")
     fn = lib.panodepth_jacobi
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_double, ctypes.c_double] + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -73,6 +77,7 @@ def _library():
 TILES = ((2, 4), (4, 4))
 MAX_WARPS = 32
 SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without opting in
+MAX_BATCH = 65535  # panoramas a launch takes: the grid's z limit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,21 +176,30 @@ def _check(buf, target, covered):
         if t.dtype != dtype:
             raise TypeError(f"cuda_jacobi: {name} must be {dtype}, "
                             f"got {t.dtype}")
-        if t.dim() != 2 or t.shape != buf.shape:
-            raise ValueError(f"cuda_jacobi: {name} must be 2-D of shape "
-                             f"{tuple(buf.shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"cuda_jacobi: {name} must be contiguous")
         if t.device != buf.device:
             raise TypeError("cuda_jacobi: all tensors must be on one device")
+    if buf.dim() not in (2, 3) or target.shape != buf.shape:
+        raise ValueError(f"cuda_jacobi: buf and target must be (H, W) or "
+                         f"(B, H, W) of one shape, got {tuple(buf.shape)} "
+                         f"and {tuple(target.shape)}")
+    if covered.shape != buf.shape[-2:]:
+        raise ValueError(f"cuda_jacobi: covered must be 2-D of shape "
+                         f"{tuple(buf.shape[-2:])}, got {tuple(covered.shape)}")
+    if buf.dim() == 3 and not 1 <= buf.shape[0] <= MAX_BATCH:
+        raise ValueError(f"cuda_jacobi: a batch of {buf.shape[0]} is outside "
+                         f"1..{MAX_BATCH} (the grid's z limit)")
 
 
 def cuda_jacobi(buf, target, covered, iterations, step, reg):
     """The CUDA kernel ``csrc/jacobi.cu``, several iterations per launch
     (:func:`plan_for`).
 
-    ``buf``/``target`` are contiguous f32 (H, W) CUDA tensors, ``covered`` a
-    bool mask of the same shape.  Returns a new tensor; ``buf`` is not
+    ``buf``/``target`` are contiguous f32 CUDA tensors, (H, W) or a (B, H,
+    W) batch of panoramas, ``covered`` an (H, W) bool mask shared by the
+    batch.  One launch sequence serves the whole batch, and each panorama
+    gets the bits it gets alone.  Returns a new tensor; ``buf`` is not
     written.  Runs on the current stream and does not synchronise.
     """
     _check(buf, target, covered)
@@ -195,7 +209,7 @@ def cuda_jacobi(buf, target, covered, iterations, step, reg):
                          f"got {iterations}")
     if iterations == 0:
         return buf.clone()
-    h, w = buf.shape
+    h, w = buf.shape[-2:]
     return run_plan(buf, target, covered, step, reg, plan_for(h, w, iterations))
 
 
@@ -204,7 +218,9 @@ def run_plan(buf, target, covered, step, reg, plan: JacobiPlan):
     ``scripts/torch_kernel_ab.py`` times other plans with)."""
     global LAUNCHES
     h, w = plan.h, plan.w
-    # the kernel's window indices are 32-bit
+    batch = buf.shape[0] if buf.dim() == 3 else 1
+    # the kernel's window indices within a panorama are 32-bit (the
+    # panorama's offset is 64-bit)
     if (h + plan.window[0] + 1) * w >= 2 ** 31:
         raise ValueError(f"cuda_jacobi: {h}x{w} exceeds 32-bit indexing")
     lib = _library()
@@ -215,7 +231,7 @@ def run_plan(buf, target, covered, step, reg, plan: JacobiPlan):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
         err = lib.panodepth_jacobi(
             buf.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            target.data_ptr(), cov.data_ptr(), h, w, plan.iterations,
+            target.data_ptr(), cov.data_ptr(), batch, h, w, plan.iterations,
             float(step), float(reg), plan.cols, plan.rows, plan.warps,
             plan.halo, plan.smem_bytes, int(plan.opt_in), stream)
     if err != 0:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import graphs
 from ..ops.resize import resize_bilinear, upsample2_nearest
 from .layers import Conv, Dense
 from .norm import GroupNorm
@@ -133,6 +134,15 @@ def _latitude_features(h: int, w: int) -> np.ndarray:
     return np.ascontiguousarray(np.broadcast_to(row[:, :, None], (2, h, w)))
 
 
+@graphs.device_cache(maxsize=16)
+def _latitude_on_device(h: int, w: int, device: torch.device, dtype):
+    """:func:`_latitude_features` as a ``dtype`` tensor on ``device``, made
+    once: a per-call host-to-device copy would stop a CUDA graph's
+    capture."""
+    return torch.from_numpy(_latitude_features(h, w)).to(device=device,
+                                                          dtype=dtype)
+
+
 class FastPanoNet(nn.Module):
     """(B, W/2, W, 3) equirect RGB in [0, 1] -> (B, W/2, W) depth in 0~1."""
 
@@ -176,8 +186,7 @@ class FastPanoNet(nn.Module):
             raise ValueError(f"FastPanoNet needs an equirect (W/2, W) input "
                              f"with W % 64 == 0, got ({h}, {w})")
         x = rgb.permute(0, 3, 1, 2).to(self.dtype)
-        lat = torch.from_numpy(_latitude_features(h, w)).to(
-            device=x.device, dtype=self.dtype)
+        lat = _latitude_on_device(h, w, x.device, self.dtype)
         x = torch.cat([x, lat[None].expand(b, -1, -1, -1)], dim=1)
         x = self.GroupNorm_0(self.CircConv_0(x))
         skips, k = [], 0

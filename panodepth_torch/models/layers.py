@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import graphs
+
 Pads = Union[str, Sequence[Tuple[int, int]]]
 
 
@@ -43,7 +45,8 @@ class Derived(nn.Module):
         if getattr(self, "_derived_key", None) != key:
             self._derived_value = make()
             self._derived_key = key
-        return self._derived_value
+        # a graph captured with this value reads it until it is evicted
+        return graphs.hold(self._derived_value)
 
 
 class Conv(Derived):

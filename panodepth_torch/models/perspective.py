@@ -27,6 +27,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -46,8 +47,10 @@ _RELU_GAIN = math.sqrt(2.0 / (1.0 - 1.0 / math.pi))
 
 
 def _const(v: float, dtype, device):
-    """``jnp.asarray(v, dtype)``: the scalar rounded to ``dtype``."""
-    return torch.tensor(v, dtype=dtype, device=device)
+    """``jnp.asarray(v, dtype)``: the scalar rounded to ``dtype``, filled
+    on ``device`` (no host-to-device copy, so a CUDA graph can capture
+    it)."""
+    return torch.full((), v, dtype=dtype, device=device)
 
 
 class WSConv(Derived):
@@ -192,18 +195,23 @@ class NFPerspectiveNet(nn.Module):
 def _percentile99(flat):
     """Per-row 99th percentile of (B, N), as ``jnp.percentile(flat, 99.0,
     axis=1)`` computes it: a full sort, then linear interpolation between
-    ranks floor and ceil of ``0.99 * (N - 1)`` in f32."""
+    ranks floor and ceil of ``0.99 * (N - 1)`` in f32.
+
+    The ranks and weights depend on N alone, so they are formed on the
+    host in numpy f32 with the same roundings and applied as Python floats
+    (exact for f32 values): no host-to-device copy, so a CUDA graph can
+    capture the call.
+    """
     n = flat.shape[1]
-    q = torch.tensor(99.0, dtype=torch.float32) / 100
-    q = q * torch.tensor(float(n), dtype=torch.float32).sub(1)
-    low, high = torch.floor(q), torch.ceil(q)
+    q = np.float32(99.0) / np.float32(100)
+    q = q * (np.float32(n) - np.float32(1))
+    low, high = np.floor(q), np.ceil(q)
     high_w = q - low
-    low_w = 1 - high_w
-    lo = int(torch.clamp(low, 0, n - 1))
-    hi = int(torch.clamp(high, 0, n - 1))
+    low_w = np.float32(1) - high_w
+    lo = int(np.clip(low, 0, n - 1))
+    hi = int(np.clip(high, 0, n - 1))
     s = torch.sort(flat.to(torch.float32), dim=1).values
-    return (s[:, lo] * low_w.to(flat.device)
-            + s[:, hi] * high_w.to(flat.device))
+    return s[:, lo] * float(low_w) + s[:, hi] * float(high_w)
 
 
 def predict_depth01(model: nn.Module, rgb):

@@ -17,14 +17,13 @@ cached.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
-from .. import geometry
+from .. import geometry, graphs
 from ..config import ViewLayout
 from .sampling import _bilinear_coords, bilinear_taps
 
@@ -42,7 +41,7 @@ def view_shape(fov, width: int = 1024) -> Tuple[int, int]:
     return int(round(width / aspect)), width
 
 
-@functools.lru_cache(maxsize=64)
+@graphs.device_cache(maxsize=64)
 def _taps(fovs: Tuple[Tuple[float, ...], ...], shape: Tuple[int, int],
           pano_hw: Tuple[int, int], device: torch.device):
     """Bilinear taps of views with the FOVs ``fovs`` and output ``shape``

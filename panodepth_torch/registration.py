@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import geometry
+from . import geometry, graphs
 from .config import MergeConfig
 from .ops.sampling import as01_post
 
@@ -98,7 +98,7 @@ def grid_sample_indices(g: SampleGrids, emap_shape, pmap_shape, view=None):
     return exi, eyi, pxi, pyi
 
 
-@functools.lru_cache(maxsize=64)
+@graphs.device_cache(maxsize=64)
 def _device_tables(cfg: MergeConfig, emap_shape, pmap_shape, view,
                    device: torch.device):
     """:func:`grid_sample_indices` and the weights, as tensors on ``device``."""
@@ -236,6 +236,22 @@ def register_views(emap, pmaps, cfg: MergeConfig):
     return fit_cubic(d0.to(torch.float32).reshape(nv, -1),
                      d1.to(torch.float32).reshape(nv, -1),
                      weight.reshape(nv, -1))
+
+
+def register_views_batched(emaps, pmaps, cfg: MergeConfig):
+    """:func:`register_views` for each panorama of a batch: ``emaps`` (B,
+    He, We), ``pmaps`` a (B, V, Hp, Wp) tensor or a list of V (B, h, w)
+    stacks; returns (B, V, 4).
+
+    The panoramas are fit one at a time, each as its batch-1 call, so each
+    gets the bits it gets alone: a batched Gram product may take another
+    algorithm for another batch count, and a sum over more outputs another
+    split.  Inside a CUDA graph the extra launches cost no host time.
+    """
+    per = (list(pmaps) if isinstance(pmaps, torch.Tensor)
+           else [list(p) for p in zip(*pmaps)])
+    return torch.stack([register_views(emaps[k], per[k], cfg)
+                        for k in range(emaps.shape[0])])
 
 
 def apply_cubic(img, abcd):

@@ -222,6 +222,32 @@ def test_model_mode_cli_matches_jax_cli_with_resume(tmp_path, capsys):
     assert (tmp_path / "res_torch" / "p0.png").read_bytes() == before
 
 
+@pytest.fixture(scope="module")
+def model_mode_scene(tmp_path_factory):
+    """Two 8-bit RGB panoramas (one with a gt) and the port CLI's model-mode
+    run on them with no flag: (argv head, common flags, result folder)."""
+    root = tmp_path_factory.mktemp("model_mode")
+    rng = np.random.RandomState(11)
+    for d in ("rgb", "gt", "bl"):
+        (root / d).mkdir()
+    for k in range(2):
+        _write_rgb8_png(str(root / "rgb" / f"p{k}.png"),
+                        _scene(k + 4, rng, w=256))
+    gt = np.clip(make_equirect(128, 64) * 0.9 + 0.05, 0, 1)
+    tio.save_png16(str(root / "gt" / "p0.png"), (gt * 65535).astype(np.uint16))
+    head = ["0", str(root / "rgb"), str(root / "gt"), str(root / "bl")]
+    common = ["--persp-ckpt", PERSP, "--baseline-ckpt", BASE, "--layout",
+              "3fold", "--out-width", "128", "--view-width", "64",
+              "--base-width", "128", "--device", "cpu"]
+    assert tcli.main(head + [str(root / "res_plain")] + common) == 0
+    return head, common, root
+
+
+# flags the model mode now runs: each case runs the CLI with it and holds
+# the files to the run without it
+_RUNS = {"--stream": ("--stream", "on"), "--profile": ("--profile",)}
+
+
 @pytest.mark.parametrize("extra,needle", [
     (("--extract-dtype", "pair16"), "--extract-dtype pair16"),
     (("--p99", "approx"), "--p99 approx"),
@@ -230,7 +256,28 @@ def test_model_mode_cli_matches_jax_cli_with_resume(tmp_path, capsys):
     (("--stream", "on"), "--stream"),
     (("--profile",), "--profile"),
 ])
-def test_model_mode_refuses_what_is_not_ported(tmp_path, extra, needle):
+def test_model_mode_refuses_what_is_not_ported(tmp_path, request, capsys,
+                                               extra, needle):
+    """What is not ported is refused by name; ``--stream on`` and
+    ``--profile``, ported since, run and give the files of the run without
+    them within 2 u16 (the CLI bar), the same metrics, and with
+    ``--profile`` the models / fuse split in the end line."""
+    if _RUNS.get(needle) == extra:
+        head, common, root = request.getfixturevalue("model_mode_scene")
+        res = root / f"res{needle.replace('-', '_')}"
+        capsys.readouterr()
+        assert tcli.main(head + [str(res)] + common + list(extra)) == 0
+        out = capsys.readouterr().out
+        for name in ("p0", "p1"):
+            got = tio.read_png(str(res / f"{name}.png"))
+            want = tio.read_png(str(root / "res_plain" / f"{name}.png"))
+            assert got.shape == (64, 128) and _u16_diff(got, want)[0] <= 2
+        assert ((res / "p0.aligned.txt").read_text()
+                == (root / "res_plain" / "p0.aligned.txt").read_text())
+        if needle == "--profile":
+            assert "time_Models_avg:n/a" not in out
+            assert "time_Models_avg:" in out and "reg+fusion" in out
+        return
     argv = ["0"] + [str(tmp_path)] * 4 + ["--persp-ckpt", PERSP,
                                            "--device", "cpu"]
     with pytest.raises(SystemExit) as e:
@@ -259,7 +306,9 @@ def test_extract_dtype_policy():
     assert te._round32(247) == 256 and te._round32(256) == 256
     assert te._round32(5) == 32
     u8 = torch.tensor([[0, 255]], dtype=torch.uint8)
-    assert te._as01_img(u8).tolist() == [[0.0, 1.0]]
+    assert te._as01(u8).tolist() == [[0.0, 1.0]]
+    u16 = torch.tensor([[0, 65535]], dtype=torch.uint16)
+    assert te._as01(u16).tolist() == [[0.0, 1.0]]
 
 
 def test_run_batch_e2e_batched_matches_single(tmp_path):

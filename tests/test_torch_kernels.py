@@ -43,7 +43,8 @@ def test_auto_on_cpu_routes_to_plain_and_counts_no_launch():
         kj.resolve("pallas")
 
 
-@pytest.mark.parametrize("bad", ["cpu_tensor", "f64", "shape", "strided"])
+@pytest.mark.parametrize("bad", ["cpu_tensor", "f64", "shape", "strided",
+                                 "batched_cov"])
 def test_cuda_jacobi_refuses_bad_arguments(bad):
     on_card = bad != "cpu_tensor" and torch.cuda.is_available()
     buf, tgt, cov = _case(8, 16, 1, device="cuda" if on_card else "cpu")
@@ -54,6 +55,9 @@ def test_cuda_jacobi_refuses_bad_arguments(bad):
         args["covered"] = cov[:4]
     elif bad == "strided":
         args["buf"] = buf.t()
+    elif bad == "batched_cov":  # the mask is one (H, W) for the batch
+        args = dict(buf=torch.stack([buf, buf]), target=torch.stack([tgt, tgt]),
+                    covered=torch.stack([cov, cov]))
     # a CPU tensor fails the device check first; on a card the others fail
     # their own check.  No call launches a kernel or falls back.
     before = kj.LAUNCHES
@@ -110,6 +114,107 @@ def test_cuda_kernel_zero_iterations_and_input_untouched(cuda_device):
     kj.cuda_jacobi(buf, tgt, cov, 5, 0.5, 1e-4)
     torch.cuda.synchronize()
     assert torch.equal(buf, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,iters", [(3, 256, 512, 200),
+                                         (3, 1024, 2048, 50),
+                                         (2, 50, 130, 20), (4, 5, 7, 3)])
+def test_cuda_batched_kernel_equals_plain_and_alone(cuda_device, b, h, w,
+                                                    iters):
+    """A (B, H, W) batch with one mask: bit-equal to the plain twin and to
+    each panorama launched alone, in the launches of one panorama."""
+    cases = [_case(h, w, h + k, device=cuda_device) for k in range(b)]
+    buf = torch.stack([c[0] for c in cases])
+    tgt = torch.stack([c[1] for c in cases])
+    cov = cases[0][2]
+    kj.LAUNCHES = 0
+    got = kj.cuda_jacobi(buf, tgt, cov, iters, 0.5, 1e-4)
+    assert kj.LAUNCHES == kj.launches_for(h, w, iters)
+    want = kj.jacobi_plain(buf, tgt, cov, iters, 0.5, 1e-4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for k in range(b):
+        alone = kj.cuda_jacobi(buf[k].contiguous(), tgt[k].contiguous(), cov,
+                               iters, 0.5, 1e-4)
+        torch.cuda.synchronize()
+        assert torch.equal(got[k], alone)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_merge_equals_eager(cuda_device):
+    """compiled_merge (a CUDA graph) and compiled_merge_batched give the
+    eager merge's bits; replays launch without ticking the counter."""
+    from panodepth_torch import config as tconfig
+    from panodepth_torch import graphs, pipeline
+
+    cfg = tconfig.MergeConfig(layout_name="3fold", out_width=256)
+    rng = np.random.RandomState(4)
+    emaps = rng.uniform(0.2, 0.8, (2, 128, 256)).astype(np.float32)
+    pmaps = rng.uniform(0.2, 0.8, (2, 9, 112, 128)).astype(np.float32)
+    want = [pipeline.merge_arrays(emaps[k], pmaps[k], cfg) for k in range(2)]
+    fn = pipeline.compiled_merge(cfg, "auto", cuda_device)
+    fn.clear()
+    per = sum(kj.launches_for(lvl.height, lvl.width, lvl.iterations)
+              for lvl in pipeline.build_fusion_plan(cfg).levels)
+    kj.LAUNCHES = 0
+    for k in (0, 1, 0):
+        out, abcd = fn(emaps[k], pmaps[k])
+        assert torch.equal(out, want[k][0]) and torch.equal(abcd, want[k][1])
+    # warm-ups and the capture tick the counter; the replays do not
+    assert kj.LAUNCHES == (graphs.WARMUP + 1) * per and len(fn) == 1
+    out, abcd = pipeline.compiled_merge_batched(cfg, "auto", cuda_device)(
+        emaps, pmaps)
+    for k in range(2):
+        assert torch.equal(out[k], want[k][0])
+        assert torch.equal(abcd[k], want[k][1])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_outlives_evicted_tables(cuda_device):
+    """A captured merge replays right after every device-table cache is
+    cleared and the freed memory is handed out again: the graph holds the
+    tables it reads."""
+    from panodepth_torch import config as tconfig
+    from panodepth_torch import fusion, pipeline, registration
+    from panodepth_torch.models import fastpano
+    from panodepth_torch.ops import projection
+
+    cfg = tconfig.MergeConfig(layout_name="3fold", out_width=256)
+    rng = np.random.RandomState(5)
+    emap = rng.uniform(0.2, 0.8, (128, 256)).astype(np.float32)
+    pmaps = rng.uniform(0.2, 0.8, (9, 112, 128)).astype(np.float32)
+    want = pipeline.merge_arrays(emap, pmaps, cfg)
+    fn = pipeline.compiled_merge(cfg, "auto", cuda_device)
+    fn.clear()
+    fn(emap, pmaps)  # captured
+    for cache in (fusion._on_device, fusion._inv_cov,
+                  registration._device_tables, projection._taps,
+                  fastpano._latitude_on_device):
+        cache.cache_clear()
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 20,), -7.0, device=cuda_device)
+            for _ in range(64)]
+    out, abcd = fn(emap, pmaps)  # replayed
+    assert torch.equal(out, want[0]) and torch.equal(abcd, want[1])
+    del junk
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(cuda_device):
+    """A function that syncs with the host cannot be captured: the call
+    raises, and never runs the function eagerly instead."""
+    from panodepth_torch import graphs
+
+    def syncs(x):
+        return x * float(x.sum())
+
+    g = graphs.Graphed(syncs, cuda_device)
+    with pytest.raises(graphs.CaptureError, match="capture failed"):
+        g(torch.ones(4, device=cuda_device))
+    assert len(g) == 0
+    # the card goes on working after the failed capture
+    assert float((torch.ones(3, device=cuda_device) * 2).sum()) == 6.0
 
 
 # --- the GroupNorm kernel (csrc/groupnorm.cu) -----------------------------

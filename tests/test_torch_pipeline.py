@@ -180,9 +180,13 @@ def test_cli_resume_skips(cli_runs, capsys):
     assert m["skipped"] == [names[0]] and m["completed"] == []
 
 
-# file mode with stage A on (no --no-extract) still refuses the batched
-# merge; stage A itself runs (tests/test_torch_stage_a.py)
+# file mode with stage A on (no --no-extract) at --batch-size 2: stage A
+# finds the scene's views and skips, the batched merge runs
 _STAGE_A_ON = ("--batch-size", "2")
+# flags the file mode now runs: each case runs the CLI with it on the
+# verify scene and holds the files to the single run and the JAX CLI's
+_RUNS = {"extra0-stage-A": _STAGE_A_ON, "--batch-size": ("--batch-size", "4"),
+         "--stream": ("--stream", "on"), "--profile": ("--profile",)}
 
 
 @pytest.mark.parametrize("extra,needle", [
@@ -198,7 +202,37 @@ _STAGE_A_ON = ("--batch-size", "2")
     (("--stream", "on"), "--stream"),
     (("--profile",), "--profile"),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, extra, needle):
+def test_cli_refuses_what_is_not_ported(tmp_path, request, extra, needle):
+    """What is not ported is refused by name.  The batched merge (with
+    stage A on and off), ``--stream on`` and ``--profile``, ported since,
+    run on the verify scene: each output equals the single run's (the CPU
+    divides k / 65535 alike on both paths) and is within 2 u16 of the JAX
+    CLI's, the baseline-less panorama is quarantined, and ``--profile``
+    records a registration time."""
+    case = request.node.callspec.id
+    if _RUNS.get(case if case in _RUNS else needle) == extra:
+        root, names = request.getfixturevalue("cli_runs")
+        result = os.path.join(root, "result_" + case.replace("-", "_"))
+        argv = _argv(root, result, "--device", "cpu", *extra)
+        if extra == _STAGE_A_ON:
+            argv.remove("--no-extract")
+        assert tcli.main(argv) == 0
+        for suffix in (".png", ".png.res.png", ".png.giv.png"):
+            got = tio.read_png(os.path.join(result, names[0] + suffix))
+            single = tio.read_png(os.path.join(root, "result_torch",
+                                               names[0] + suffix))
+            want = jio.load_image01(os.path.join(root, "result_jax",
+                                                 names[0] + suffix))
+            np.testing.assert_array_equal(got, single)
+            d = np.abs(got.astype(np.int64)
+                       - np.round(want * 65535).astype(np.int64))
+            assert d.max() <= 2, (suffix, d.max())
+        with open(os.path.join(result, "manifest.json")) as fp:
+            m = json.load(fp)
+        assert m["completed"] == [names[0]]
+        assert [q["name"] for q in m["quarantined"]] == [names[1]]
+        assert len(m["time_reg_ms"]) == (needle == "--profile")
+        return
     argv = ["0", str(tmp_path), str(tmp_path), str(tmp_path), str(tmp_path),
             "--device", "cpu"]
     if extra != _STAGE_A_ON:

@@ -76,6 +76,21 @@ Phases, each printing its elapsed seconds:
              the merge at batch 1, the batched graph at 4 and 24, the e2e
              graph at batch 2 (and its eager stages) and 8, each with the
              device's idle share.
+13. families — each of the zoo's other checkpoints at full width (the GN
+             perspective net on the 15 views of 5fold_leres at 256, the
+             UniFuse-class, HoHoNet, BiFuse and SliceNet baselines at
+             256x512): every GroupNorm call of one forward held against the
+             plain version (each image of a multi-image call bit-equal to
+             itself alone), the calls per forward, their shapes, the set
+             timed (kernel, plain, ``F.group_norm``) with its bound; the net
+             through the kernel against the plain route; the e2e graph at
+             batch 2 with the family (each baseline beside the NF
+             perspective net, the GN perspective net beside FastPanoNet):
+             launches counted at the capture, the graph bit-equal to eager,
+             kernel routes against plain routes, batch 2 against batch 1,
+             time per panorama and idle share; then the model-mode CLI with
+             the BiFuse baseline and the GN perspective net, with resume,
+             and ``--base-width 256`` refused for HoHoNet.
 
 Launch counts: a graph's kernels are counted by their wrappers at the two
 warm-up calls and the capture (``graph_launches``); a replay launches them
@@ -602,6 +617,46 @@ def _bf16_steps_off(got, want, f32_tol):
     return float((off / torch.clamp_min(step, 2.0 ** -133)).max())
 
 
+def fast_variance_condition(x, groups, eps=1e-6):
+    """(N, G) condition number of flax's fast variance ``E[x²] - E[x]²`` on
+    each (image, group) of ``x``: ``(E[x²] + E[x]²) / (var + eps)``, in f64.
+    A rounding of the sums reaches the variance, and so every output,
+    multiplied by it: 1 for a group centred on 0, ~100 for a smooth image
+    channel whose mean is ten times its spread (the kernel and the plain
+    version take exact f64 sums, so none reaches them)."""
+    xg = x.reshape(x.shape[0], groups, -1).double()
+    mean, mean2 = xg.mean(-1), (xg * xg).mean(-1)
+    return (mean2 + mean * mean) / ((mean2 - mean * mean).clamp_min(0) + eps)
+
+
+def _gn_hold(label, x, scale, bias, groups, relu, out_dtype, flat=False):
+    """The GroupNorm kernel against its plain version on one input, within
+    the bars above; returns the max abs difference."""
+    from panodepth_torch.kernels import groupnorm as kg
+
+    got = kg.cuda_group_norm(x, scale, bias, groups, 1e-6, relu, out_dtype)
+    want = kg.group_norm_plain(x, scale, bias, groups, 1e-6, relu, out_dtype)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    if flat:
+        ok, why = err <= GN_FLAT_ABS, f"max abs {err!r} <= {GN_FLAT_ABS}"
+    else:
+        tol = GN_F32_ULPS * 2.0 ** -23 * max(
+            1.0, float(want.float().abs().max()))
+        if out_dtype == torch.bfloat16:
+            u = _bf16_steps_off(got, want, tol)
+            ok, why = u <= 1, f"{u!r} bf16 steps <= 1"
+        else:
+            ok, why = err <= tol, (f"max abs {err!r} <= {tol!r} ({GN_F32_ULPS}"
+                                   f" f32 ulp of the scale)")
+    if not (ok and finite):
+        raise AssertionError(f"groupnorm kernel disagrees with the plain "
+                             f"version ({label}): {why} is "
+                             f"{ok}, finite {finite}")
+    return err
+
+
 def _device_profile(run):
     """(device busy ms, kernel events sorted by device time) over ``run()``
     under torch.profiler; busy 0.0 when the profiler saw no device time."""
@@ -683,30 +738,7 @@ def phase_groupnorm(base, rgbs_u8):
                   f"{p.slice}, {p.smem_bytes} B shared"
                   f"{' (opt-in)' if p.opt_in else ''}")
 
-    def hold(label, x, scale, bias, groups, relu, out_dtype, flat=False):
-        got = kg.cuda_group_norm(x, scale, bias, groups, 1e-6, relu, out_dtype)
-        want = kg.group_norm_plain(x, scale, bias, groups, 1e-6, relu,
-                                   out_dtype)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
-        if flat:
-            ok, why = err <= GN_FLAT_ABS, f"max abs {err!r} <= {GN_FLAT_ABS}"
-        else:
-            tol = GN_F32_ULPS * 2.0 ** -23 * max(
-                1.0, float(want.float().abs().max()))
-            if out_dtype == torch.bfloat16:
-                u = _bf16_steps_off(got, want, tol)
-                ok, why = u <= 1, f"{u!r} bf16 steps <= 1"
-            else:
-                ok, why = err <= tol, (f"max abs {err!r} <= {tol!r} ({GN_F32_ULPS}"
-                                       f" f32 ulp of the scale)")
-        if not (ok and finite):
-            raise AssertionError(f"groupnorm kernel disagrees with the plain "
-                                 f"version ({label}): {why} is "
-                                 f"{ok}, finite {finite}")
-        return err
-
+    hold = _gn_hold
     max_abs = 0.0
     seen = set()
     for m, x in calls:
@@ -1149,6 +1181,312 @@ def phase_cli_e2e(rgbs_u8, gt_u16, e2e):
         if skips != len(names) or kj.LAUNCHES or kg.LAUNCHES:
             raise AssertionError("model-mode resume did not skip the "
                                  "finished panoramas")
+
+
+# --- the zoo's other model families ---
+
+GN_PERSP_CKPT = os.path.join(ZOO, "gn", "perspective_final.params.npz")
+# each family's checkpoint, the net it is paired with in the e2e graph (the
+# GN perspective net with FastPanoNet, each baseline with the NF
+# perspective net), and the GroupNorms of one forward
+FAMILIES = {
+    "gn_perspective": (GN_PERSP_CKPT, "fastpano", 29),
+    "panoramic": (os.path.join(ZOO, "panoramic_final.params.npz"), "nf", 31),
+    "hohonet": (os.path.join(ZOO, "hohonet_final.params.npz"), "nf", 18),
+    "bifuse": (os.path.join(ZOO, "bifuse_final.params.npz"), "nf", 38),
+    "slicenet": (os.path.join(ZOO, "slicenet_final.params.npz"), "nf", 16),
+}
+# a family's net (0~1 output) through the kernel against the plain route:
+# the CPU tests' bf16 bar of the port against JAX, where every conv sums in
+# another order (here only the norms' f32 sums do)
+FAMILY_ROUTE_ABS = 1e-2
+
+
+def _family_input(name, rgb01):
+    """What the e2e graph feeds a family's net from one panorama (1, H, W,
+    3): the 256x512 resize, or the 15 views of 5fold_leres at view width
+    256, resized to 256x256."""
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.ops.projection import extract_group, view_groups
+    from panodepth_torch.ops.resize import resize_bilinear_nhwc
+
+    if name != "gn_perspective":
+        return resize_bilinear_nhwc(rgb01, (256, 512))
+    layout = MergeConfig(layout_name="5fold_leres").layout
+    (shape, idxs), = view_groups(layout, 256).items()
+    views = extract_group(rgb01, layout.fovs[idxs], shape)[0]
+    return resize_bilinear_nhwc(views, (256, 256))
+
+
+def _family_forward(name, net, feed):
+    """The net as the e2e graph runs it: 0~1 depth."""
+    from panodepth_torch.models.perspective import predict_depth01
+
+    return predict_depth01(net, feed) if name == "gn_perspective" \
+        else net(feed)
+
+
+def _family_norm_calls(name, net, feed):
+    """(module, input) of every GroupNorm call of one forward on ``feed``."""
+    from panodepth_torch.models import norm as pnorm
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0].contiguous().clone())))
+        for m in net.modules() if isinstance(m, pnorm.GroupNorm)]
+    pnorm.set_route(net, "torch")
+    _family_forward(name, net, feed)
+    pnorm.set_route(net, "auto")
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def _family_groupnorm(name, net, feed, count):
+    """Every GroupNorm call of one forward held against the plain version,
+    each image of a multi-image call bit-equal to itself alone; the calls
+    timed as a set (kernel, plain, ``F.group_norm``) with their bound."""
+    import torch.nn.functional as F
+    from panodepth_torch.kernels import groupnorm as kg
+
+    calls = _family_norm_calls(name, net, feed)
+    if len(calls) != count:
+        raise AssertionError(f"{name} ran {len(calls)} norms, expected "
+                             f"{count}")
+    shapes = sorted({(x.shape[0], x.shape[1], int(x[0, 0].numel()),
+                      m.num_groups) for m, x in calls})
+    max_abs, cond, seen = 0.0, 1.0, set()
+    for m, x in calls:
+        key = (x.shape[0], x.shape[1], int(x[0, 0].numel()), m.num_groups)
+        max_abs = max(max_abs, _gn_hold(f"{name} {key}", x, m.scale, m.bias,
+                                        m.num_groups, m.fuse_relu, m.dtype))
+        cond = max(cond, float(fast_variance_condition(x, m.num_groups).max()))
+        if x.shape[0] == 1 or key in seen:
+            continue
+        seen.add(key)
+        both = kg.cuda_group_norm(x, m.scale, m.bias, m.num_groups, 1e-6,
+                                  m.fuse_relu, m.dtype)
+        for i in range(x.shape[0]):
+            alone = kg.cuda_group_norm(x[i:i + 1].contiguous(), m.scale,
+                                       m.bias, m.num_groups, 1e-6,
+                                       m.fuse_relu, m.dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(both[i:i + 1], alone):
+                raise AssertionError(f"groupnorm {name} {key}: image {i} "
+                                     f"differs from itself alone")
+    xs32 = [x.float() for _, x in calls]
+
+    def kernel_set():
+        for m, x in calls:
+            kg.cuda_group_norm(x, m.scale, m.bias, m.num_groups, 1e-6,
+                               m.fuse_relu, m.dtype)
+
+    def plain_set():
+        for m, x in calls:
+            kg.group_norm_plain(x, m.scale, m.bias, m.num_groups, 1e-6,
+                                m.fuse_relu, m.dtype)
+
+    def library_set():
+        for (m, _), x in zip(calls, xs32):
+            F.group_norm(x, m.num_groups, m.scale, m.bias, 1e-6)
+
+    k_ms = _median_ms(kernel_set, runs=7, warmup=2)
+    p_ms = _median_ms(plain_set, runs=5, warmup=1)
+    l_ms = _median_ms(library_set, runs=7, warmup=2)
+    busy_ms, _ = _device_profile(kernel_set)
+    lib_busy_ms, _ = _device_profile(library_set)
+    elements = sum(x.numel() for _, x in calls)
+    nbytes = sum(x.numel() * (x.element_size() + torch.empty(
+        (), dtype=m.dtype).element_size()) for m, x in calls)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 8 * elements / PEAK_F32_FLOPS * 1e3
+    print(f"families {name}: {len(calls)} groupnorm calls per forward over "
+          f"{len(shapes)} shapes (N, C, HW, G) {shapes}; kernel vs plain max "
+          f"abs {max_abs!r} (largest condition of a group's fast variance "
+          f"{cond!r}), every image of a multi-image call bit-equal to "
+          f"itself alone; per forward ({elements} elements, {nbytes} bytes): "
+          f"kernel {k_ms!r} ms (device {busy_ms!r} ms), plain {p_ms!r} ms, "
+          f"F.group_norm {l_ms!r} ms (device {lib_busy_ms!r} ms, f32 copies), "
+          f"bound {max(bytes_ms, ops_ms)!r} ms "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    return dict(calls=len(calls), shapes=shapes, max_abs_err=max_abs,
+                max_condition=cond,
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, device_ms=busy_ms,
+                library_device_ms=lib_busy_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _family_e2e(name, persp, base, rgbs):
+    """The e2e graph at full width with the family's pair, batch 2: launches
+    counted at the capture, graph bit-equal to eager, kernel routes against
+    plain routes, batch 2 against batch 1, warm time and idle share."""
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.e2e import build_batched_e2e
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+    from panodepth_torch.models import norm as pnorm
+
+    cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
+    b = rgbs.shape[0]
+    norms = sum(isinstance(m, pnorm.GroupNorm) for net in (persp, base)
+                for m in net.modules())
+    build = lambda **kw: build_batched_e2e(persp, cfg, view_width=256,
+                                           base_model=base, base_w=512, **kw)
+    full, _, _ = build()
+    want = dict(jacobi=graph_launches(sum(jacobi_launches(cfg))),
+                group_norm=graph_launches(b * norms * kg.launches_per_call()))
+    kj.LAUNCHES = kg.LAUNCHES = 0
+    out, bases = full(rgbs)
+    torch.cuda.synchronize()
+    launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"families {name} e2e launches {launches}, "
+                             f"expected {want}")
+    if out.shape != (b, 1024, 2048) or out.dtype != torch.uint16 or not bool(
+            ((bases >= 0) & (bases <= 1)).all()):
+        raise AssertionError(f"families {name}: bad e2e output")
+    eager, eager_bases = full.eager(rgbs)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, eager) and torch.equal(bases, eager_bases)):
+        raise AssertionError(f"families {name}: e2e graph differs from its "
+                             f"eager stages")
+    plain, _ = build(jacobi="torch", groupnorm="torch")[0].eager(rgbs)
+    diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
+    route = (int(diff.max()), float(diff.float().mean()))
+    if route[0] > E2E_ROUTE_MAX_U16 or route[1] > E2E_ROUTE_MEAN_U16:
+        raise AssertionError(f"families {name}: kernel routes vs plain "
+                             f"routes {route}")
+    batch_diff = []
+    for k in range(b):
+        d1 = (out[k].to(torch.int32)
+              - full(rgbs[k:k + 1])[0][0].to(torch.int32)).abs()
+        batch_diff.append((int(d1.max()), float(d1.float().mean())))
+    if max(d for d, _ in batch_diff) > 1:
+        raise AssertionError(f"families {name}: a panorama's output depends "
+                             f"on its batch: {batch_diff}")
+    times = []
+    for _ in range(6):  # one warm-up, then five timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full(rgbs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    call_ms = float(np.median(times[1:]))
+    busy_ms, events = _device_profile(lambda: full(rgbs))
+    gn_ms = sum(ms for ms, _, key in events if "gn_cluster" in key)
+    gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
+    if busy_ms > 0 and gn_seen != b * norms:
+        raise AssertionError(f"families {name}: the replay ran {gn_seen} "
+                             f"groupnorm launches, expected {b * norms}")
+    idle = 1 - busy_ms / call_ms if busy_ms > 0 else None
+    print(f"families {name} e2e (batch {b}, {norms} norms a panorama): "
+          f"launches {launches} at the capture; graph bit-equal to eager; "
+          f"kernel vs plain routes u16 (max, mean) {route} (bounds "
+          f"{E2E_ROUTE_MAX_U16}, {E2E_ROUTE_MEAN_U16}); batch 2 vs batch 1 "
+          f"{batch_diff}; graph {call_ms / b!r} ms a panorama (host clock, "
+          f"median of 5), device busy {busy_ms!r} of {call_ms!r} ms a call "
+          f"(idle share {idle!r}), groupnorm {gn_ms!r} ms in {gn_seen} "
+          f"launches; top device time by name (ms, calls):")
+    for ms, count, key in events[:8]:
+        print(f"  {ms:9.4f} ms  {count:6d}  {key[:90]}")
+    return dict(launches=launches, route_diff=route, batch_diff=batch_diff,
+                ms_per_pano=call_ms / b, call_ms=call_ms, busy_ms=busy_ms,
+                idle_share=idle, groupnorm_graph_ms=gn_ms,
+                norms_per_pano=norms)
+
+
+def phase_families(persp, base, rgbs_u8):
+    """Each of the zoo's other checkpoints at full width: its GroupNorm
+    calls against the plain version, the net through the kernel against
+    the plain route, then the e2e graph with it (batch 2)."""
+    from panodepth_torch.e2e import load_model_checkpoint
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import norm as pnorm
+
+    dev = torch.device("cuda")
+    rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
+    out = {}
+    for name, (ckpt, pair, count) in FAMILIES.items():
+        net, _ = load_model_checkpoint(ckpt)
+        feed = _family_input(name, rgbs[:1])
+        gn = _family_groupnorm(name, net, feed, count)
+        kg.LAUNCHES = 0
+        got = _family_forward(name, pnorm.set_route(net, "auto"), feed)
+        torch.cuda.synchronize()
+        launches = kg.LAUNCHES
+        plain = _family_forward(name, pnorm.set_route(net, "torch"), feed)
+        pnorm.set_route(net, "auto")
+        diff = float((got - plain).abs().max())
+        print(f"families {name}: net {tuple(feed.shape)} -> "
+              f"{tuple(got.shape)}, {launches} groupnorm launches; kernel "
+              f"route vs plain route max abs {diff!r} (bound "
+              f"{FAMILY_ROUTE_ABS})")
+        if launches != count * kg.launches_per_call() or not bool(
+                ((got >= 0) & (got <= 1)).all()) or diff > FAMILY_ROUTE_ABS:
+            raise AssertionError(f"families {name}: net check failed")
+        pair_persp, pair_base = (net, base) if pair == "fastpano" \
+            else (persp, net)
+        e2e = _family_e2e(name, pair_persp, pair_base, rgbs)
+        out[name] = dict(groupnorm=gn, net_route_abs=diff, e2e=e2e)
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_families_cli(rgbs_u8):
+    """The model-mode CLI with the BiFuse baseline and the GN perspective
+    net, then resume; ``--base-width`` refused for HoHoNet."""
+    from panodepth_torch import MergeConfig, cli, io as pio
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    names = [f"pano_{i:04d}" for i in range(len(rgbs_u8))]
+    per_pano = sum(jacobi_launches(MergeConfig()))
+    norms = FAMILIES["bifuse"][2] + FAMILIES["gn_perspective"][2]
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_fam_") as root:
+        d = {k: os.path.join(root, k) for k in ("rgb", "gt", "bl", "res")}
+        for path in d.values():
+            os.makedirs(path)
+        for name, rgb in zip(names, rgbs_u8):
+            write_png_rgb8(os.path.join(d["rgb"], name + ".png"), rgb)
+        argv = ["0", d["rgb"], d["gt"], d["bl"], d["res"], "--persp-ckpt",
+                GN_PERSP_CKPT, "--baseline-ckpt", FAMILIES["bifuse"][0]]
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        if cli.main(argv) != 0:
+            raise AssertionError("cli.main returned non-zero")
+        launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+        want = dict(jacobi=graph_launches(per_pano),
+                    group_norm=graph_launches(norms * kg.launches_per_call()))
+        print(f"families cli (bifuse + GN perspective): launches {launches} "
+              f"for {len(names)} panoramas (expected {want})")
+        if launches != want:
+            raise AssertionError("families cli launches")
+        for name in names:
+            got = pio.read_png(os.path.join(d["res"], name + ".png"))
+            if got.shape != (1024, 2048) or got.dtype != np.uint16:
+                raise AssertionError(f"families cli output {got.shape}")
+        kj.LAUNCHES = kg.LAUNCHES = 0
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            cli.main(argv)
+        skips = log.getvalue().count("skip!")
+        print(f"families cli resume: {skips} skip! lines, launches jacobi "
+              f"{kj.LAUNCHES}, group_norm {kg.LAUNCHES}")
+        if skips != len(names) or kj.LAUNCHES or kg.LAUNCHES:
+            raise AssertionError("families cli resume did not skip")
+        refused = ["0", d["rgb"], d["gt"], d["bl"], os.path.join(root, "r2"),
+                   "--persp-ckpt", PERSP_CKPT, "--baseline-ckpt",
+                   FAMILIES["hohonet"][0], "--base-width", "256"]
+        try:
+            cli.main(refused)
+        except SystemExit as e:
+            msg = str(e.code)
+        else:
+            raise AssertionError("--base-width with hohonet was not refused")
+        print(f"families cli: --base-width 256 with hohonet refused: {msg}")
+        if "fixed-width decoder" not in msg:
+            raise AssertionError(f"unexpected refusal: {msg}")
 
 
 # --- stage A: the reference's own command, JPEG throughout ---
@@ -1759,6 +2097,9 @@ def main():
         batched = phase_batched(cfg, cfg_4096)
     with Phase("graphs"):
         graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs, e2e)
+    with Phase("families"):
+        families = phase_families(persp, base, rgbs)
+        phase_families_cli(rgbs)
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
@@ -1782,8 +2123,14 @@ def main():
         device_ms=gn["device_ms"], library_device_ms=gn["library_device_ms"],
         calls_per_forward=gn["calls"],
         device_ms_in_e2e_graph=e2e["kernel_ms"].get("group_norm"),
-        launches_by_path=dict(e2e=e2e["launches"]["group_norm"],
-                              e2e_graph=e2e["launches"]["group_norm"]))]
+        launches_by_path=dict(
+            e2e=e2e["launches"]["group_norm"],
+            e2e_graph=e2e["launches"]["group_norm"],
+            **{f"e2e_{k}": v["e2e"]["launches"]["group_norm"]
+               for k, v in families.items()}),
+        families={k: dict(v["groupnorm"], e2e_ms_per_pano=v["e2e"][
+            "ms_per_pano"], e2e_idle_share=v["e2e"]["idle_share"])
+            for k, v in families.items()})]
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "

@@ -6,9 +6,9 @@ Hopper.  This package covers the file-mode merge, the reference's stage C
 (``MergeDepthMaps``, Depth.cpp:754-930): per-view cubic registration by
 normal equations, multiresolution Laplacian fusion whose Jacobi relaxation
 runs as a CUDA kernel (``csrc/jacobi.cu``), u16 output and scoring; and the
-on-device e2e graph (``e2e``): RGB panorama -> the baseline CNN, whose
-GroupNorms run as a CUDA kernel (``csrc/groupnorm.cu``), and the perspective
-CNN on the extracted views -> the merge.
+on-device e2e graph (``e2e``): RGB panorama -> the baseline CNN (any zoo
+family) and the perspective CNN on the extracted views, whose GroupNorms
+run as a CUDA kernel (``csrc/groupnorm.cu``) -> the merge.
 
 It imports neither ``jax`` nor anything of ``panodepth``.
 """

@@ -19,7 +19,11 @@ there under the same names per panorama (stage C).  With it (model mode)
 it runs the on-device e2e graph on the RGB panoramas: the perspective CNN
 on the extracted views and, with ``--baseline-ckpt``, the baseline CNN
 (else the baseline files of the ``baseline`` folder), then registration
-and fusion.
+and fusion.  Every zoo checkpoint runs: ``--persp-ckpt`` takes the NF
+(``zoo/perspective_*``) or the GN (``zoo/gn/perspective_*``) perspective
+net, ``--baseline-ckpt`` FastPanoNet (``zoo/fastpano_*``), the UniFuse-
+class net (``zoo/panoramic_*``), HoHoNet (``zoo/hohonet_*``), BiFuse
+(``zoo/bifuse_*``) or SliceNet (``zoo/slicenet_*``).
 Counterpart of ``panodepth/cli.py``; what is not ported yet is refused,
 never ignored.
 """
@@ -95,13 +99,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "(*.params.npz beside its <model>.config.json)")
     p.add_argument("--baseline-ckpt", default=None,
                    help="model mode: make the baseline with this CNN "
-                        "instead of reading baseline files")
+                        "(any zoo family: fastpano, panoramic, hohonet, "
+                        "bifuse, slicenet) instead of reading baseline "
+                        "files")
     p.add_argument("--view-width", type=int, default=None,
                    help="model mode: perspective view width (default: the "
                         "checkpoint's training view_size)")
     p.add_argument("--base-width", type=int, default=None,
                    help="model mode: run the baseline CNN at this width "
-                        "instead of its training pano_width")
+                        "instead of its training pano_width (refused for "
+                        "hohonet and slicenet, whose decoders fix it)")
     p.add_argument("--infer-norm", default=None,
                    choices=["auto", "f32", "bf16"],
                    help="model mode: GroupNorm output type; auto = f32")

@@ -6,16 +6,24 @@
 // _compute_stats / _normalize) over an NCHW activation, where each
 // (image, group) is one contiguous span of cg * HW elements:
 //
-//   mean = sum(x) / n,  mean2 = sum(x * x) / n          (f32 sums, n = cg*HW)
+//   mean = f32(sum(x) / n),  mean2 = f32(sum(x * x) / n)   (n = cg*HW; the
+//          sums and the divisions in f64, each rounded once to f32)
 //   var  = max(mean2 - mean * mean, 0)
 //   y    = (x - mean) * (rsqrt(var + eps) * scale[c]) + bias[c]
 //   y    = relu ? max(y, 0) : y,  then one cast to the output type
 //
 // The input is bf16 (a conv's output) or f32; the output f32 or bf16.
-// Every operation is written with a round-to-nearest intrinsic (and the
-// library is built with -fmad=false), so nothing is contracted into an FMA
-// and the only differences from the plain PyTorch version are the order of
-// the f32 sums and rsqrtf, which is not correctly rounded.
+// The sums are f64: each x and x * x is exact there, and for bf16 input so
+// is every partial sum (8-bit mantissas, squares of 16 bits, far from f64's
+// 53), so any order of summation gives the same statistics, and they are
+// the correctly rounded ones.  That matters because E[x²] - E[x]² cancels:
+// a group whose mean dwarfs its spread (a smooth image channel, as at the
+// GN perspective net's stem, where (E[x²] + E[x]²) / var reaches ~120)
+// multiplies an f32 sum's rounding by that ratio, and two f32 sums in two
+// orders then disagreed by 22 f32 ulps of the output.  Every f32 operation
+// is written with a round-to-nearest intrinsic (and the library is built
+// with -fmad=false), so nothing is contracted into an FMA, and the plain
+// PyTorch version (the same f64 sums) gives the same bits but for rsqrtf.
 //
 // What bounds it on an H100 SXM (3.35 TB/s): bytes.  FastPanoNet at a
 // 256x512 input runs 29 norms over 12,828,672 elements per image; reading
@@ -31,7 +39,7 @@
 // stays one block, since a cluster's barriers cost more than the split
 // saves).  Each block
 //   1. loads its slice of the span with 16-byte vector loads, keeps it in
-//      shared memory and sums it to one f32 (s1, s2) pair (a fixed
+//      shared memory and sums it to one f64 (s1, s2) pair (a fixed
 //      per-thread order and a fixed reduction tree);
 //   2. publishes the pair in its shared memory; after a cluster barrier,
 //      reads the K pairs through distributed shared memory (one lane per
@@ -43,7 +51,7 @@
 //      division; short channels a warp each), with 16-byte vector stores.
 // A head and a tail that are not 8-aligned (HW % 8 != 0) take scalar
 // accesses inside the same kernel.  A slice too large for shared memory
-// even at K = 16 is read twice instead (unstaged); no FastPanoNet shape is.
+// even at K = 16 is read twice instead (unstaged); no zoo net's shape is.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -104,11 +112,11 @@ __device__ __forceinline__ void store8(float* p, const float* v) {
 
 // Sums a and b over the block in a fixed tree; the totals are valid in
 // thread 0.
-__device__ __forceinline__ void block_sum(float& a, float& b) {
-  __shared__ float sa[kWarps], sb[kWarps];
+__device__ __forceinline__ void block_sum(double& a, double& b) {
+  __shared__ double sa[kWarps], sb[kWarps];
   for (int off = 16; off > 0; off >>= 1) {
-    a = __fadd_rn(a, __shfl_down_sync(0xffffffffu, a, off));
-    b = __fadd_rn(b, __shfl_down_sync(0xffffffffu, b, off));
+    a = __dadd_rn(a, __shfl_down_sync(0xffffffffu, a, off));
+    b = __dadd_rn(b, __shfl_down_sync(0xffffffffu, b, off));
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
@@ -120,8 +128,8 @@ __device__ __forceinline__ void block_sum(float& a, float& b) {
     a = sa[0];
     b = sb[0];
     for (int i = 1; i < kWarps; ++i) {
-      a = __fadd_rn(a, sa[i]);
-      b = __fadd_rn(b, sb[i]);
+      a = __dadd_rn(a, sa[i]);
+      b = __dadd_rn(b, sb[i]);
     }
   }
 }
@@ -142,10 +150,10 @@ __global__ void __launch_bounds__(kThreads)
 gn_cluster(const Tin* __restrict__ x, Tout* __restrict__ y,
            const float* __restrict__ scale, const float* __restrict__ bias,
            int span, int hw, int channels, int slice, int staged, int vec,
-           float count, float eps, int relu) {
+           float eps, int relu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Tin* keep = reinterpret_cast<Tin*>(smem_raw);
-  __shared__ float2 s_pair;
+  __shared__ double2 s_pair;
   __shared__ float s_mean, s_inv;
   cg::cluster_group cluster = cg::this_cluster();
   const int k = static_cast<int>(cluster.num_blocks());
@@ -178,14 +186,14 @@ gn_cluster(const Tin* __restrict__ x, Tout* __restrict__ y,
     bi = bias[c0 % channels];
   }
 
-  // 1. load (and keep) the slice, f32 sums in a fixed order
-  float a1 = 0.0f, a2 = 0.0f;
+  // 1. load (and keep) the slice, f64 sums
+  double a1 = 0.0, a2 = 0.0;
   for (int i = s0 + tid; i < head; i += kThreads) {
     const Tin raw = x[i];
     if (staged) keep[i - base] = raw;
-    const float v = to_f32(raw);
-    a1 = __fadd_rn(a1, v);
-    a2 = __fadd_rn(a2, __fmul_rn(v, v));
+    const double v = to_f32(raw);
+    a1 = __dadd_rn(a1, v);
+    a2 = __dadd_rn(a2, __dmul_rn(v, v));
   }
 #pragma unroll 4
   for (int i = head + tid * kVec; i < vend; i += kThreads * kVec) {
@@ -195,19 +203,20 @@ gn_cluster(const Tin* __restrict__ x, Tout* __restrict__ y,
     if (staged) keep8(keep + (i - base), raw);
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      a1 = __fadd_rn(a1, v[j]);
-      a2 = __fadd_rn(a2, __fmul_rn(v[j], v[j]));
+      const double d = v[j];
+      a1 = __dadd_rn(a1, d);
+      a2 = __dadd_rn(a2, __dmul_rn(d, d));
     }
   }
   for (int i = vend + tid; i < s1; i += kThreads) {
     const Tin raw = x[i];
     if (staged) keep[i - base] = raw;
-    const float v = to_f32(raw);
-    a1 = __fadd_rn(a1, v);
-    a2 = __fadd_rn(a2, __fmul_rn(v, v));
+    const double v = to_f32(raw);
+    a1 = __dadd_rn(a1, v);
+    a2 = __dadd_rn(a2, __dmul_rn(v, v));
   }
   block_sum(a1, a2);
-  if (tid == 0) s_pair = make_float2(a1, a2);
+  if (tid == 0) s_pair = make_double2(a1, a2);
 
   // 2. the cluster's pairs in rank order: every block the same statistics.
   // Lane r of warp 0 reads rank r's pair (the K remote reads in flight
@@ -220,16 +229,17 @@ gn_cluster(const Tin* __restrict__ x, Tout* __restrict__ y,
   else
     __syncthreads();
   if (tid < 32) {
-    float2 p = make_float2(0.0f, 0.0f);
+    double2 p = make_double2(0.0, 0.0);
     if (tid < k) p = multi ? *cluster.map_shared_rank(&s_pair, tid) : s_pair;
-    float t1 = 0.0f, t2 = 0.0f;
+    double t1 = 0.0, t2 = 0.0;
     for (int r = 0; r < k; ++r) {
-      t1 = __fadd_rn(t1, __shfl_sync(0xffffffffu, p.x, r));
-      t2 = __fadd_rn(t2, __shfl_sync(0xffffffffu, p.y, r));
+      t1 = __dadd_rn(t1, __shfl_sync(0xffffffffu, p.x, r));
+      t2 = __dadd_rn(t2, __shfl_sync(0xffffffffu, p.y, r));
     }
     if (tid == 0) {
-      const float mean = __fdiv_rn(t1, count);
-      const float mean2 = __fdiv_rn(t2, count);
+      const double n = span;
+      const float mean = __double2float_rn(__ddiv_rn(t1, n));
+      const float mean2 = __double2float_rn(__ddiv_rn(t2, n));
       const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.0f);
       s_mean = mean;
       s_inv = rsqrtf(__fadd_rn(var, eps));
@@ -320,8 +330,7 @@ int launch(const void* x, void* y, const float* scale, const float* bias,
   cfg.numAttrs = cluster > 1 ? 1 : 0;  // a lone block needs no cluster
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const Tin*>(x),
                            static_cast<Tout*>(y), scale, bias, span, hw, c,
-                           slice, staged, vec, static_cast<float>(span), eps,
-                           relu);
+                           slice, staged, vec, eps, relu);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,14 +6,17 @@ them into depth images, and separately produced baseline panoramas are
 read from disk (``Main.cpp:438-474, 500-516``).  Here the chain runs on one
 device with no pixels leaving it between stages:
 
-    FastPanoNet(resize(rgb))        -> baseline panorama      (0~1)
+    baseline CNN(resize(rgb))       -> baseline panorama      (0~1)
     extract_views(rgb)              -> V perspective RGB views
-    NFPerspectiveNet(views)         -> V perspective depths   (0~1)
+    perspective CNN(views)          -> V perspective depths   (0~1)
     register_views + fuse           -> u16 panorama
 
-The baseline may instead come from files (the reference's form).  Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
-card the GroupNorms and the Jacobi run their CUDA kernels.
+The baseline CNN is any zoo family (FastPanoNet, the UniFuse-class
+PanoBaselineNet, HorizonDepthNet, BiFuseNet, SliceNet), the perspective
+CNN NFPerspectiveNet or the GN PerspectiveDepthNet; the baseline may
+instead come from files (the reference's form).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; on the card the
+GroupNorms and the Jacobi run their CUDA kernels.
 """
 
 from __future__ import annotations
@@ -101,7 +104,8 @@ def load_model_checkpoint(ckpt_path: str, norm_dtype=None, device="cuda",
 
     ``norm_dtype`` is the GroupNorm output type (f32 when None, as the JAX
     package runs off the TPU); ``dtype`` the conv compute type (bf16, as
-    in JAX).  Only ``perspective``/``nf`` and ``fastpano`` are ported.
+    in JAX).  Every kind of the JAX loader is built (``weights.build_model``);
+    the int8 graph (JAX's ``quantize=True``) is not ported.
     """
     arch = weights.read_arch(ckpt_path)
     model = weights.build_model(arch, dtype=dtype,
@@ -128,15 +132,16 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
       counterpart of the JAX package's vmapped stage);
     - ``full(rgbs[, baselines]) -> (out_u16, baselines)``: both.
 
-    Each net runs one panorama per call: FastPanoNet on one panorama, the
+    Each net runs one panorama per call: the baseline CNN on one panorama
+    (a two-branch net's cube faces are that panorama's six), the
     perspective CNN on one panorama's views of a shape.  cuDNN then sees
     the shapes of a batch of one at any batch size, and a panorama's output
     does not depend on its batch.  Inside a graph the extra launches cost
     no host time.
 
-    The nets are moved to ``device``; ``groupnorm`` is the route of the
-    baseline CNN's GroupNorms and ``jacobi`` that of the relaxation
-    (``auto``: the CUDA kernels on the card, the plain versions on the CPU).
+    The nets are moved to ``device``; ``groupnorm`` is the route of both
+    nets' GroupNorms and ``jacobi`` that of the relaxation (``auto``: the
+    CUDA kernels on the card, the plain versions on the CPU).
     """
     _resolve_extract_dtype(extract_dtype)
     dev = resolve_device(device)
@@ -163,7 +168,8 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         nh, nw = _round32(h), _round32(w)
         if (nh, nw) != (h, w):
             views = resize_bilinear_nhwc(views, (nh, nw))
-        depths = predict_depth01(persp_model, views)
+        depths = predict_depth01(pnorm.set_route(persp_model, groupnorm),
+                                 views)
         if (nh, nw) != (h, w):
             depths = resize_bilinear(depths, (h, w))
         return depths
@@ -255,7 +261,13 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
     if baseline_ckpt:
         base_model, base_arch = load_model_checkpoint(baseline_ckpt,
                                                       norm_dtype, device=dev)
+        # the fixed-width families' column decoders run at their training
+        # width only (panodepth/e2e.py:519-523)
         base_w = base_width or base_arch.get("pano_width", 512)
+        if base_width and base_arch.get("model") in ("hohonet", "slicenet"):
+            raise SystemExit(f"--base-width: {base_arch['model']} has a "
+                             f"fixed-width decoder; run it at its training "
+                             f"width {base_arch.get('pano_width', 512)}")
     full, models_stage, fuse_stage = build_batched_e2e(
         persp_model, cfg, view_width=view_width, base_model=base_model,
         base_w=base_w, extract_dtype=extract_dtype, jacobi=jacobi,

@@ -4,11 +4,16 @@
 for the TPU kernel ``panodepth/kernels/groupnorm.py::group_norm`` (the
 source note there says what bounds it).  ``group_norm_plain`` is the same
 function in plain PyTorch, flax's ``GroupNorm`` (``_compute_stats`` and
-``_normalize``) as ``panodepth.models.norm.GroupNorm`` runs it: f32 sums of
-x and x² per (image, group), ``var = max(E[x²] - E[x]², 0)``, then
+``_normalize``) as ``panodepth.models.norm.GroupNorm`` runs it: the means
+of x and x² per (image, group), ``var = max(E[x²] - E[x]², 0)``, then
 ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, an optional ReLU
-and one cast.  The CPU tests hold the twin against the JAX package, and
-the card holds the kernel against the twin.
+and one cast.  Both take the means as f64 sums divided in f64 and rounded
+once to f32 (flax sums in f32): the sums of bf16 inputs are then exact
+in any order, so the kernel and the twin agree on the statistics bit for
+bit even where ``E[x²] - E[x]²`` cancels (a group whose mean dwarfs its
+spread), and an image normalises to the same bits under any plan and at
+any batch.  The CPU tests hold the twin against the JAX package, and the
+card holds the kernel against the twin.
 
 Both take an NCHW activation ``x`` (bf16 or f32) and f32 per-channel
 ``scale``/``bias``.  :func:`resolve` maps a route to one of them: ``auto``
@@ -36,10 +41,10 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
     flax's op order (see the module docstring)."""
     n, c = x.shape[:2]
     cg = c // num_groups
-    xg = x.reshape(n, num_groups, -1).to(torch.float32)
+    xg = x.reshape(n, num_groups, -1).to(torch.float64)
     count = xg.shape[-1]
-    mean = xg.sum(-1) / count
-    mean2 = (xg * xg).sum(-1) / count
+    mean = (xg.sum(-1) / count).to(torch.float32)
+    mean2 = ((xg * xg).sum(-1) / count).to(torch.float32)
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
     mul = torch.rsqrt(var + eps).repeat_interleave(cg, 1) * scale
     shape = (n, c) + (1,) * (x.dim() - 2)
@@ -148,11 +153,10 @@ def plan_for(n: int, channels: int, hw: int, groups: int,
     at least MIN_SLICE elements; then doubled further (to 16) while the
     slice does not fit in shared memory.  A slice that does not fit at
     K = 16 is not staged (read twice).  K does not depend on ``n``: the
-    slices, and so the f32 sum order of every (image, group), are the same
-    at any batch, and an image normalises to the same bits at batch 1 (the
-    CLI) and batch 2 (the e2e call) wherever its C*HW is a multiple of 8,
-    as at every FastPanoNet shape (the kernel's vector runs start at
-    16-byte addresses).  MIN_SLICE is measured (``scripts/
+    slices, and so the sum order of every (image, group), are the same at
+    any batch (and f64 sums of bf16 inputs do not depend on the order at
+    all), so an image normalises to the same bits at batch 1 (the CLI) and
+    batch 2 (the e2e call).  MIN_SLICE is measured (``scripts/
     torch_kernel_ab.py --sweep``, PERF.md): a cluster's barriers add ~0.9
     us to a call (floor 3.56 us against 2.64 us for a lone block), more
     than splitting a span of a few thousand elements saves.

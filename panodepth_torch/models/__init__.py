@@ -1,4 +1,6 @@
-"""The JAX package's e2e nets in PyTorch: ``NFPerspectiveNet`` (the
-perspective depth CNN) and ``FastPanoNet`` (the panoramic baseline CNN,
-whose GroupNorms run the CUDA kernel ``csrc/groupnorm.cu``), with the loader
+"""The JAX package's nets in PyTorch: the perspective depth CNNs
+(``NFPerspectiveNet``, the GN ``PerspectiveDepthNet``), the panoramic
+baseline CNNs (``FastPanoNet``, the UniFuse-class ``PanoBaselineNet`` and
+``NFPanoBaselineNet``, ``BiFuseNet``, ``HorizonDepthNet``, ``SliceNet``),
+whose GroupNorms run the CUDA kernel ``csrc/groupnorm.cu``, and the loader
 of the zoo's ``*.params.npz`` checkpoints (``weights``)."""

@@ -1,4 +1,6 @@
-"""Flax's ``nn.Conv`` and ``nn.Dense`` as the JAX nets use them, in NCHW.
+"""Flax's layers as the JAX nets use them: ``nn.Conv`` (in NCHW),
+``nn.Dense``, ``nn.LayerNorm``, ``nn.MultiHeadDotProductAttention``,
+``nn.GRUCell`` and ``nn.gelu``.
 
 The port's nets keep flax's parameter names (``kernel``, ``bias``) and
 submodule names (``Conv_0``, ``Dense_1``, ...), so a checkpoint maps onto
@@ -90,20 +92,155 @@ class Conv(Derived):
 class Dense(nn.Module):
     """``flax.linen.Dense`` over the last axis; ``kernel`` is (out, in)."""
 
-    def __init__(self, cin: int, features: int, dtype=torch.bfloat16):
+    def __init__(self, cin: int, features: int, dtype=torch.bfloat16,
+                 use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(features, cin),
                                    requires_grad=False)
         nn.init.normal_(self.kernel, std=1.0 / math.sqrt(cin))
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self.bias = (nn.Parameter(torch.zeros(features), requires_grad=False)
+                     if use_bias else None)
 
     def forward(self, x):
         y = F.linear(x.to(self.dtype), self.kernel.to(self.dtype))
-        return y + self.bias.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def softplus(x):
     """``jax.nn.softplus`` (``logaddexp(x, 0)``): max(x, 0) +
     log1p(exp(-|x|))."""
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mean_f32(x, dims):
+    """``jnp.mean`` of a bf16 or f32 tensor: an f32 sum divided in f32, one
+    rounding to ``x``'s type."""
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    return (x.to(torch.float32).sum(dims) / n).to(x.dtype)
+
+
+def gelu(x):
+    """``flax.linen.gelu``: the tanh approximation (``approximate=True``),
+    each step in ``x``'s type with its constants rounded to it."""
+    c = torch.full((), math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                   device=x.device)
+    k = torch.full((), 0.044715, dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm`` over the last axis: ``epsilon`` 1e-6, f32
+    statistics with the fast variance ``max(E[x²] - E[x]², 0)``, the
+    affine in f32, one cast to ``dtype``."""
+
+    def __init__(self, features: int, eps: float = 1e-6,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        n = x.shape[-1]
+        mean = xf.sum(-1, keepdim=True) / n
+        mean2 = (xf * xf).sum(-1, keepdim=True) / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+        return y.to(self.dtype)
+
+
+class DenseGeneral(Derived):
+    """The projections of ``flax.linen.MultiHeadDotProductAttention``:
+    ``kernel`` holds the output axes first, then the contracted ones
+    (``query``: (heads, head_dim, in); ``out``: (out, heads, head_dim)),
+    ``bias`` has the output axes' shape."""
+
+    def __init__(self, cin, features, dtype=torch.bfloat16):
+        super().__init__()
+        cin, features = tuple(cin), tuple(features)
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(features + cin),
+                                   requires_grad=False)
+        nn.init.normal_(self.kernel, std=1.0 / math.sqrt(math.prod(cin)))
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+
+    def forward(self, x):
+        """``x`` (..., prod(in)) -> (..., prod(features)) in ``dtype``."""
+        w = self.derived(lambda: self.kernel.to(self.dtype).reshape(
+            self.bias.numel(), -1), self.kernel)
+        y = F.linear(x.to(self.dtype), w)
+        return y + self.bias.to(self.dtype).reshape(-1)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """``flax.linen.MultiHeadDotProductAttention`` (self-attention, no mask,
+    no dropout) in flax's op order, every step in ``dtype``: the query
+    divided by sqrt(head_dim) before the product, the softmax in ``dtype``
+    (its sum in f32, rounded once, as ``jnp.sum`` takes it), and the output
+    projected back to the input width."""
+
+    def __init__(self, cin: int, num_heads: int, qkv_features: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.heads, self.head_dim = num_heads, qkv_features // num_heads
+        self.dtype = dtype
+        hd = (num_heads, self.head_dim)
+        self.query = DenseGeneral((cin,), hd, dtype)
+        self.key = DenseGeneral((cin,), hd, dtype)
+        self.value = DenseGeneral((cin,), hd, dtype)
+        self.out = DenseGeneral(hd, (cin,), dtype)
+
+    def forward(self, x):  # (B, L, C)
+        b, n, _ = x.shape
+        split = lambda t: t.view(b, n, self.heads, self.head_dim)
+        q = split(self.query(x))
+        k, v = split(self.key(x)), split(self.value(x))
+        q = q / torch.full((), math.sqrt(self.head_dim), dtype=self.dtype,
+                           device=x.device)
+        w = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        u = torch.exp(w - w.amax(-1, keepdim=True))
+        w = u / u.to(torch.float32).sum(-1, keepdim=True).to(self.dtype)
+        y = torch.einsum("bhqk,bkhd->bqhd", w, v)
+        return self.out(y.reshape(b, n, -1))
+
+
+class GRUCell(nn.Module):
+    """``flax.linen.GRUCell``: ``ir``/``iz``/``in`` with biases, ``hr``/
+    ``hz`` without, ``hn`` with one; ``n = tanh(in(x) + r * hn(h))``,
+    ``h' = (1 - z) * n + z * h``.  The carry is f32 (flax's
+    ``param_dtype``), so ``h'`` is f32 while the gates are ``dtype``."""
+
+    def __init__(self, cin: int, features: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        for name in ("ir", "iz", "in"):
+            self.add_module(name, Dense(cin, features, dtype))
+        for name in ("hr", "hz"):
+            self.add_module(name, Dense(features, features, dtype,
+                                        use_bias=False))
+        self.hn = Dense(features, features, dtype)
+
+    def scan(self, x, reverse: bool = False):
+        """``nn.RNN(cell)`` over (B, L, C) from a zero carry; ``reverse``
+        runs the sequence backwards and returns it in the original order
+        (``keep_order=True``).  The input projections of all steps are
+        taken at once (each row is its own product)."""
+        xr, xz, xn = (getattr(self, n)(x) for n in ("ir", "iz", "in"))
+        h = torch.zeros(x.shape[0], self.hn.kernel.shape[0],
+                        dtype=torch.float32, device=x.device)
+        out = [None] * x.shape[1]
+        for t in (reversed(range(x.shape[1])) if reverse
+                  else range(x.shape[1])):
+            r = torch.sigmoid(xr[:, t] + self.hr(h))
+            z = torch.sigmoid(xz[:, t] + self.hz(h))
+            n = torch.tanh(xn[:, t] + r * self.hn(h))
+            h = (1.0 - z) * n + z * h
+            out[t] = h
+        return torch.stack(out, 1)

@@ -1,9 +1,9 @@
 """GroupNorm, routed to the CUDA kernel on the card.
 
 Counterpart of ``panodepth/models/norm.py::GroupNorm`` (flax
-``nn.GroupNorm`` with ``epsilon=1e-6``, f32 statistics and an optional
-fused ReLU), over NCHW activations.  The parameters keep flax's names,
-``scale`` and ``bias``.
+``nn.GroupNorm`` with ``epsilon=1e-6``, f32 statistics (taken from exact
+f64 sums, ``kernels/groupnorm.py``) and an optional fused ReLU), over NCHW
+activations.  The parameters keep flax's names, ``scale`` and ``bias``.
 
 ``route`` picks the function (``kernels/groupnorm.resolve``): ``auto`` runs
 the CUDA kernel ``csrc/groupnorm.cu`` on a CUDA tensor and the plain

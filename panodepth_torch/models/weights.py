@@ -2,19 +2,22 @@
 
 Counterpart of ``panodepth/models/train.py::load_params_npz``
 (train.py:239-256) and of the architecture-sidecar logic of
-``panodepth/e2e.py::load_model_checkpoint`` (e2e.py:126-234), for the two
-nets of the e2e graph: ``perspective`` checkpoints of variant ``nf``
-(:class:`NFPerspectiveNet`) and ``fastpano`` checkpoints
-(:class:`FastPanoNet`).  Any other kind raises.
+``panodepth/e2e.py::load_model_checkpoint`` (e2e.py:126-234), for every
+kind it builds: ``perspective`` (GN or NF), ``hohonet``, ``bifuse``,
+``slicenet``, ``fastpano``, and any other kind as the UniFuse-class
+``panoramic`` net (GN or NF), as JAX falls through to it.
 
 A ``*.params.npz`` checkpoint stores each flax parameter under its path
 (``"['params']['CircResBlock_0']['GroupNorm_1']['scale']"``) as bf16 bit
 patterns in ``uint16``; they widen exactly to f32 as ``u16 << 16``.  The
 port's nets keep flax's module and parameter names, so a path maps to the
 port's parameter ``CircResBlock_0.GroupNorm_1.scale`` mechanically; only
-conv kernels change layout (flax HWIO -> OIHW) and dense kernels (flax
-(in, out) -> (out, in)).  Loading fails unless every key of the file is
-consumed and every parameter of the net is filled.
+kernels change layout: conv kernels flax HWIO -> OIHW, dense kernels flax
+(in, out) -> (out, in), and the attention's 3-D ``DenseGeneral`` kernels
+output axes first (``query``/``key``/``value`` (in, heads, dim) -> (heads,
+dim, in), ``out`` (heads, dim, out) -> (out, heads, dim)).  Loading fails
+unless every key of the file is consumed and every parameter of the net is
+filled.
 """
 
 from __future__ import annotations
@@ -55,9 +58,14 @@ def port_name(key: str) -> str:
 
 def to_port_layout(name: str, a: np.ndarray) -> np.ndarray:
     """A flax leaf in the port's layout: conv kernels HWIO -> OIHW, dense
-    kernels (in, out) -> (out, in); everything else as it is."""
+    kernels (in, out) -> (out, in), attention kernels output axes first
+    (the ``out`` projection contracts its first two axes, the others their
+    first); everything else as it is."""
     if name.endswith("kernel") and a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+    if name.endswith("kernel") and a.ndim == 3:
+        return np.ascontiguousarray(a.transpose(
+            (2, 0, 1) if name.endswith(".out.kernel") else (1, 2, 0)))
     if name.endswith("kernel") and a.ndim == 2:
         return np.ascontiguousarray(a.T)
     return a
@@ -103,22 +111,49 @@ def read_arch(ckpt_path: str) -> dict:
 def build_model(arch: dict, dtype=torch.bfloat16,
                 norm_dtype=torch.float32) -> nn.Module:
     """The net an architecture sidecar describes, with its widths scaled by
-    ``width_scale`` as the JAX loader scales them."""
+    ``width_scale`` as the JAX loader scales them.  The fixed-height
+    families (hohonet, slicenet) are built for the sidecar's
+    ``pano_width``; ``PANODEPTH_BIFUSE_PROJ`` and ``PANODEPTH_PANO_PROJ``
+    pick the two-branch nets' projection form, as in JAX."""
     s = arch.get("width_scale", 1.0)
     kind, variant = arch["model"], arch.get("variant", "gn")
-    if kind == "perspective" and variant == "nf":
-        from .perspective import NFPerspectiveNet
+    kw = dict(dtype=dtype, norm_dtype=norm_dtype)
+    pano = tuple(max(8, int(w * s)) for w in (32, 64, 128, 256))
+    height = arch.get("pano_width", 512) // 2
+    if kind == "perspective":
+        from .perspective import NFPerspectiveNet, PerspectiveDepthNet
 
-        return NFPerspectiveNet(
-            widths=tuple(max(8, int(w * s)) for w in (64, 128, 256, 512)),
-            decoder_width=max(16, int(128 * s)), dtype=dtype)
+        widths = tuple(max(8, int(w * s)) for w in (64, 128, 256, 512))
+        if variant == "nf":
+            return NFPerspectiveNet(widths=widths,
+                                    decoder_width=max(16, int(128 * s)),
+                                    dtype=dtype)
+        return PerspectiveDepthNet(widths=widths,
+                                   decoder_width=max(16, int(128 * s)), **kw)
+    if kind == "hohonet":
+        from .hohonet import HorizonDepthNet
+
+        return HorizonDepthNet(widths=pano, horizon_dim=max(32, int(256 * s)),
+                               height=height, **kw)
+    if kind == "bifuse":
+        from .bifuse import BiFuseNet
+
+        return BiFuseNet(widths=pano, proj=os.environ.get(
+            "PANODEPTH_BIFUSE_PROJ", "bilinear"), **kw)
+    if kind == "slicenet":
+        from .slicenet import SliceNet
+
+        return SliceNet(widths=pano, slice_dim=max(32, int(256 * s)),
+                        height=height, **kw)
     if kind == "fastpano":
         from .fastpano import FastPanoNet
 
         return FastPanoNet(
             widths=tuple(max(8, int(w * s)) for w in (48, 96, 192, 384)),
-            decoder_width=max(16, int(96 * s)), dtype=dtype,
-            norm_dtype=norm_dtype)
-    raise ValueError(f"model kind {kind!r} (variant {variant!r}) is not "
-                     f"ported yet: the port runs perspective/nf and fastpano "
-                     f"checkpoints")
+            decoder_width=max(16, int(96 * s)), **kw)
+    from .panoramic import NFPanoBaselineNet, PanoBaselineNet
+
+    if variant == "nf":
+        return NFPanoBaselineNet(widths=pano, **kw)
+    return PanoBaselineNet(widths=pano, proj=os.environ.get(
+        "PANODEPTH_PANO_PROJ", "bilinear"), **kw)

@@ -1,7 +1,9 @@
 """Equirect and perspective samplers.
 
 Counterpart of the nearest and bilinear samplers of
-``panodepth/ops/sampling.py``.  The reference samples its depth maps
+``panodepth/ops/sampling.py`` (with ``sample_equirect_nearest_mc``, the
+one-tap form of the bilinear sampler that the cubemap projections'
+``taps="nearest"`` use).  The reference samples its depth maps
 nearest-neighbour through C float->int casts:
 
 * ``PerspectiveMap::Value`` (Depth.cpp:111-118):
@@ -98,4 +100,25 @@ def sample_equirect_bilinear(img, azimuth, zenith):
         img = img[..., None]
     h, w = img.shape[:2]
     out = bilinear_taps(img, _bilinear_coords(h, w, azimuth, zenith))
+    return out[..., 0] if squeeze else out
+
+
+def nearest_of(taps):
+    """The max-weight tap ``(x, y)`` of bilinear taps ``(x0, x1, y0, y1,
+    wx, wy)``: x1 where wx >= 0.5, else x0 (likewise y)."""
+    x0, x1, y0, y1, wx, wy = taps
+    return (torch.where(wx[..., 0] >= 0.5, x1, x0),
+            torch.where(wy[..., 0] >= 0.5, y1, y0))
+
+
+def sample_equirect_nearest_mc(img, azimuth, zenith):
+    """Multi-channel nearest equirect sampling with the bilinear sampler's
+    tap convention (azimuth wrap included): the max-weight tap of each 2x2
+    neighbourhood, one gather a pixel.  ``img`` is (H, W) or (H, W, C)."""
+    squeeze = img.dim() == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    xn, yn = nearest_of(_bilinear_coords(h, w, azimuth, zenith))
+    out = img[yn, xn]
     return out[..., 0] if squeeze else out

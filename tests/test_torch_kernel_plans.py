@@ -142,8 +142,73 @@ def test_jacobi_plan_emulated_bit_equal_to_plain(h, w, iters):
 FASTPANO_SHAPES = [(32768, 96, 32), (32768, 24, 8), (8192, 96, 32),
                    (8192, 48, 16), (2048, 96, 32), (512, 192, 32),
                    (512, 96, 32), (128, 384, 32)]
+# the other zoo families' norms at the full configuration (panoramas
+# 256x512, views 256x256): (N, C, HW, G) of the e2e graph's calls, N the
+# six cube faces or one panorama's 15 views (_family_norm_calls)
+FAMILY_CALLS = {
+    # GN PerspectiveDepthNet on 15 views
+    (15, 32, 16384, 32), (15, 128, 16384, 32), (15, 64, 4096, 32),
+    (15, 128, 4096, 32), (15, 128, 1024, 32), (15, 128, 256, 32),
+    (15, 256, 256, 32), (15, 512, 64, 32),
+    # UniFuse-class and BiFuse: the equirect branch, the cube branch
+    (1, 32, 32768, 32), (1, 64, 8192, 32), (1, 128, 2048, 32),
+    (1, 256, 512, 32), (6, 32, 4096, 32), (6, 64, 1024, 32),
+    (6, 128, 256, 32), (6, 256, 64, 32),
+    # HoHoNet: the one-row height squeeze, group size 1 at 16 wide
+    (1, 256, 128, 32), (1, 256, 32, 32), (1, 16, 131072, 16),
+    (1, 16, 32768, 16), (1, 32, 8192, 32), (1, 64, 2048, 32),
+}
+FAMILY_SHAPES = sorted({(hw, c, g) for _, c, hw, g in FAMILY_CALLS})
+FAMILY_NETS = {  # sidecar, input, GroupNorm calls per forward
+    "gn_perspective": ({"model": "perspective"}, (15, 256, 256, 3), 29),
+    "panoramic": ({"model": "panoramic"}, (1, 256, 512, 3), 31),
+    "hohonet": ({"model": "hohonet"}, (1, 256, 512, 3), 18),
+    "bifuse": ({"model": "bifuse"}, (1, 256, 512, 3), 38),
+    "slicenet": ({"model": "slicenet"}, (1, 256, 512, 3), 16),
+}
 GN_CASES = ([(n, c, hw, g) for hw, c, g in FASTPANO_SHAPES for n in (1, 2)]
+            + sorted(FAMILY_CALLS | {(1, c, hw, g) for _, c, hw, g in
+                                     FAMILY_CALLS})
             + [(3, 20, 63, 4), (1, 4, 1, 4)])
+
+
+def _family_norm_calls(arch, shape):
+    """(N, C, HW, G, input type) of every GroupNorm call of a net in one
+    forward, traced on the meta device (shapes only, no arithmetic)."""
+    from panodepth_torch.models import weights
+
+    with torch.device("meta"):
+        net = weights.build_model(arch)
+    calls = []
+    for m in net.modules():
+        if isinstance(m, tnorm.GroupNorm):
+            m.register_forward_pre_hook(lambda mod, args: calls.append((
+                args[0].shape[0], args[0].shape[1], args[0][0, 0].numel(),
+                mod.num_groups, args[0].dtype)))
+    with torch.no_grad():
+        net(torch.empty(shape, device="meta"))
+    return calls
+
+
+@pytest.mark.parametrize("family", list(FAMILY_NETS))
+def test_family_norm_shapes_are_the_nets_own(family):
+    """The table above is what each zoo family's net runs: its norm count
+    per forward, bf16 inputs, and every call's (N, C, HW, G)."""
+    arch, shape, count = FAMILY_NETS[family]
+    calls = _family_norm_calls(arch, shape)
+    assert len(calls) == count
+    for n, c, hw, g, dtype in calls:
+        assert dtype == torch.bfloat16
+        assert (n, c, hw, g) in FAMILY_CALLS
+        # each (image, group) span sits on the 8-element vector grid, so an
+        # image normalises to the same bits alone and in the call's batch
+        assert (c // g * hw) % kgn.VEC == 0
+
+
+def test_family_calls_table_lists_only_what_the_nets_run():
+    traced = {call[:4] for arch, shape, _ in FAMILY_NETS.values()
+              for call in _family_norm_calls(arch, shape)}
+    assert traced == FAMILY_CALLS
 
 
 @pytest.mark.parametrize("n,c,hw,g", GN_CASES)
@@ -168,8 +233,8 @@ def test_group_norm_plan_slices_cover_each_span_once(n, c, hw, g, in_bytes):
     assert p.smem_bytes + kgn.SMEM_STATIC <= SMEM_MAX
     if not p.opt_in:
         assert p.smem_bytes + kgn.SMEM_STATIC <= SMEM_DEFAULT
-    # every FastPanoNet slice is kept in shared memory (one read)
-    if (hw, c, g) in FASTPANO_SHAPES:
+    # every slice of a zoo net is kept in shared memory (one read)
+    if (hw, c, g) in FASTPANO_SHAPES or (hw, c, g) in FAMILY_SHAPES:
         assert p.staged
     # enough blocks for the 132 SMs where the cluster size and the span
     # allow it
@@ -193,21 +258,23 @@ def test_group_norm_plan_block_counts_and_opt_in():
 
 
 def _emulate_group_norm(x, scale, bias, groups, eps, plan):
-    """The kernel's partition in PyTorch: each slice summed in f32, the
-    cluster's pairs combined in rank order, then the slice normalised
-    channel by channel."""
+    """The kernel's partition in PyTorch: each slice summed in f64, the
+    cluster's pairs combined in rank order, the means rounded to f32, then
+    the slice normalised channel by channel."""
     xf = x.reshape(-1).to(torch.float32)
+    xd = xf.to(torch.float64)
     y = torch.empty_like(xf)
     count = float(plan.span)
     for image in range(plan.n):
         for group in range(groups):
-            pairs = [(xf[s0:s1].sum(), (xf[s0:s1] * xf[s0:s1]).sum())
+            pairs = [(xd[s0:s1].sum(), (xd[s0:s1] * xd[s0:s1]).sum())
                      for s0, s1 in plan.slices(image, group)]
-            t1 = torch.zeros((), dtype=torch.float32)
-            t2 = torch.zeros((), dtype=torch.float32)
+            t1 = torch.zeros((), dtype=torch.float64)
+            t2 = torch.zeros((), dtype=torch.float64)
             for p1, p2 in pairs:
                 t1, t2 = t1 + p1, t2 + p2
-            mean, mean2 = t1 / count, t2 / count
+            mean = (t1 / count).to(torch.float32)
+            mean2 = (t2 / count).to(torch.float32)
             inv = torch.rsqrt(torch.clamp_min(mean2 - mean * mean, 0.0) + eps)
             for s0, s1 in plan.slices(image, group):
                 for c in range(s0 // plan.hw, -(-s1 // plan.hw)):
@@ -234,15 +301,42 @@ def test_group_norm_plan_emulated_matches_plain(shape, groups):
     assert float((got - want).abs().max()) <= tol
 
 
+def test_group_norm_partition_gives_the_plain_bits_where_variance_cancels():
+    """bf16 inputs whose mean is 100 times their spread (the fast
+    variance's condition ~1e4, as in a smooth image channel): f32 sums in
+    two orders would differ by thousands of f32 ulps there; the f64 sums of
+    the kernel's partition and of the plain version are exact, so the two
+    give the same bits."""
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.normal(2.0, 0.02, (2, 32, 128, 128)).astype(
+        np.float32)).to(torch.bfloat16)
+    scale = torch.tensor(rng.uniform(0.5, 2, 32).astype(np.float32))
+    bias = torch.tensor(rng.uniform(-1, 1, 32).astype(np.float32))
+    plan = kgn.plan_for(2, 32, 128 * 128, 32, 2)
+    assert plan.cluster > 1
+    got = _emulate_group_norm(x, scale, bias, 32, 1e-6, plan)
+    want = kgn.group_norm_plain(x, scale, bias, 32, 1e-6)
+    assert torch.equal(got, want)
+    # the premise: the variance from f32 sums depends on their order here
+    xf = x.float().reshape(2, 32, -1)
+
+    def f32_var(t):
+        m, m2 = t.sum(-1) / t.shape[-1], (t * t).sum(-1) / t.shape[-1]
+        return m2 - m * m
+
+    assert not torch.equal(f32_var(xf), f32_var(xf.flip(-1)))
+
+
 @pytest.mark.parametrize("c,hw,g", [(c, hw, g) for hw, c, g in
-                                    FASTPANO_SHAPES] + [(20, 63, 4)])
+                                    FASTPANO_SHAPES + FAMILY_SHAPES]
+                         + [(20, 63, 4)])
 @pytest.mark.parametrize("in_bytes", [2, 4])
 def test_group_norm_plan_does_not_depend_on_the_batch(c, hw, g, in_bytes):
-    """Every image's span is split alike at any batch, so its f32 sums run
+    """Every image's span is split alike at any batch, so its sums run
     in one order and it normalises to the same bits at batch 1 (the CLI)
     and at batch 2 (the e2e call)."""
     one = kgn.plan_for(1, c, hw, g, in_bytes)
-    for n in (2, 3, 8):
+    for n in (2, 3, 6, 8, 15):
         p = kgn.plan_for(n, c, hw, g, in_bytes)
         assert (p.cluster, p.slice, p.staged, p.smem_bytes, p.opt_in) == (
             one.cluster, one.slice, one.staged, one.smem_bytes, one.opt_in)

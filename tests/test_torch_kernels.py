@@ -286,7 +286,15 @@ def test_bf16_steps_off_counts_steps():
     ((1, 24, 128, 256), 8), ((1, 48, 64, 128), 16), ((1, 96, 32, 64), 32),
     ((1, 192, 16, 32), 32), ((1, 384, 8, 16), 32), ((2, 96, 128, 256), 32),
     ((2, 24, 128, 256), 8), ((1, 96, 128, 256), 32), ((1, 4, 512, 1024), 1),
-    ((3, 20, 7, 9), 4), ((1, 4, 1, 1), 4)])
+    ((3, 20, 7, 9), 4), ((1, 4, 1, 1), 4),
+    # the other zoo families' shapes: group size 1 (HoHoNet, SliceNet),
+    # one-row and four-row horizon activations (HoHoNet), the six cube
+    # faces (UniFuse-class, BiFuse), one panorama's 15 views (the GN
+    # perspective net), and a span shorter than one vector
+    ((1, 16, 256, 512), 16), ((1, 16, 128, 256), 16), ((1, 256, 1, 32), 32),
+    ((1, 256, 4, 32), 32), ((6, 32, 64, 64), 32), ((6, 256, 8, 8), 32),
+    ((15, 32, 128, 128), 32), ((15, 128, 16, 16), 32), ((15, 512, 8, 8), 32),
+    ((2, 12, 1, 5), 12)])
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("relu", [False, True])
 def test_cuda_group_norm_matches_plain(cuda_device, shape, groups, in_dtype,
@@ -324,7 +332,9 @@ def test_cuda_group_norm_matches_plain(cuda_device, shape, groups, in_dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,groups", [
     ((2, 24, 128, 256), 8), ((2, 96, 128, 256), 32), ((2, 96, 64, 128), 32),
-    ((2, 384, 8, 16), 32), ((3, 20, 6, 10), 4)])
+    ((2, 384, 8, 16), 32), ((3, 20, 6, 10), 4), ((6, 32, 64, 64), 32),
+    ((6, 256, 8, 8), 32), ((15, 128, 128, 128), 32), ((15, 512, 8, 8), 32),
+    ((2, 16, 256, 512), 16), ((2, 256, 1, 32), 32)])
 @pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
 def test_cuda_group_norm_batch_invariant(cuda_device, shape, groups,
                                          in_dtype):

@@ -248,14 +248,6 @@ def test_loader_refuses_leftovers_and_holes():
         weights.port_name("GroupNorm_0/scale")
 
 
-@pytest.mark.parametrize("arch", [
-    {"model": "perspective"}, {"model": "perspective", "variant": "gn"},
-    {"model": "hohonet"}, {"model": "bifuse"}, {"model": "panoramic"}])
-def test_other_kinds_are_not_ported(arch):
-    with pytest.raises(ValueError, match="not ported yet"):
-        weights.build_model(arch)
-
-
 def test_fastpano_refuses_widths_not_divisible_by_64():
     tm = tfast.FastPanoNet(widths=(8, 8, 16, 16), decoder_width=16,
                            dtype=torch.float32)

@@ -91,6 +91,26 @@ Phases, each printing its elapsed seconds:
              time per panorama and idle share; then the model-mode CLI with
              the BiFuse baseline and the GN perspective net, with resume,
              and ``--base-width 256`` refused for HoHoNet.
+14. serve  — the serving path: ``python -m panodepth_torch.serve``
+             exports, each in a child process of its own and all at once,
+             the 2048 merge (batch 4, u16 512x1024 baselines, 15 988x1024
+             views), the e2e graph with FastPanoNet + NF (batch 2, u8
+             1024x2048 RGB, views 256) and the e2e graph of each other
+             family (batch 1); export seconds and artifact bytes.  Each
+             artifact loaded here (load seconds): its kernel operator nodes
+             (3 ``jacobi``; 29 ``group_norm`` a FastPanoNet forward), the
+             launches of its first call and of a replay under the profiler
+             (26 Jacobi launches a batch, one GroupNorm launch a norm call),
+             its outputs bit-equal to the in-process ``compiled_merge_batched``
+             or ``e2e.full`` graph, then again after a load in a fresh
+             process that imports no JAX; the ``daemon`` on the e2e
+             artifact (8 clients, 2 quality-95 JPEG panoramas each, every
+             PNG answer bit-equal to the direct call: latency p50/p99, batch
+             fill, panoramas/s, host decode and encode ms) and on the merge
+             artifact (.npz); the replays timed in turns against the
+             in-process graphs (artifact, graph, graph, artifact) with
+             device busy and idle share.  The artifacts live in a temporary
+             directory, deleted at the end.
 
 Launch counts: a graph's kernels are counted by their wrappers at the two
 warm-up calls and the capture (``graph_launches``); a replay launches them
@@ -1846,7 +1866,10 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
     tiles = sum(c for _, c, n in events if "jacobi_tile" in n)
     print(f"graphs: one B=4 replay under the profiler: device busy "
           f"{busy!r} ms, jacobi_tile launches {tiles}")
-    if busy > 0 and tiles != per_pano:
+    if busy <= 0:
+        raise AssertionError("graphs: the profiler saw no device time in "
+                             "the B=4 replay")
+    if tiles != per_pano:
         raise AssertionError("the batched replay did not run its kernels")
     order24 = [0, 1] * 12
     e24 = torch.stack([ins[k][0] for k in order24])
@@ -2049,6 +2072,421 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
                 e2e_cli_launches=e2e_launches, table=table)
 
 
+# ---------------------------------------------------------------------------
+# phase serve: the exported artifacts, loaded and served
+
+SERVE_MERGE_BATCH = 4
+SERVE_E2E_BATCH = 2
+SERVE_CLIENTS = 8      # client threads of the daemon burst
+SERVE_REQUESTS = 32    # image requests per client: 256 latency samples
+# a fresh process: load each artifact named on the command line, run it on
+# its saved inputs and save the outputs; prints load seconds, cold ms and
+# launches as JSON
+_FRESH_LOAD = r"""
+import json, os, sys, time
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import torch
+from panodepth_torch import serve
+from panodepth_torch.kernels import groupnorm as kg, jacobi as kj
+report = {}
+for name in sys.argv[3:]:
+    base = os.path.join(sys.argv[2], name)
+    t0 = time.monotonic()
+    art = serve.load(base + ".pt2")
+    load_s = time.monotonic() - t0
+    with np.load(base + ".in.npz") as z:
+        ins = [z[k] for k in sorted(z.files)]
+    kj.LAUNCHES = kg.LAUNCHES = 0
+    t0 = time.monotonic()
+    outs = [o.cpu().numpy() for o in art(*ins)]
+    cold_ms = (time.monotonic() - t0) * 1e3
+    np.savez(base + ".fresh.npz", *outs)
+    report[name] = dict(load_s=load_s, cold_ms=cold_ms, launches=dict(
+        jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES))
+bad = sorted(m for m in sys.modules if m in ("jax", "panodepth", "PIL")
+             or m.startswith(("jax.", "panodepth.", "PIL.")))
+if bad:
+    raise SystemExit(f"the fresh process imported {bad}")
+print(json.dumps(report))
+"""
+
+
+def _serve_cli(*args):
+    """``python -m panodepth_torch.serve ARGS`` in a child process started
+    from the repository root."""
+    return subprocess.Popen([sys.executable, "-m", "panodepth_torch.serve",
+                             *args], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _child_output(proc, label, timeout=600):
+    """The child's output once it exited 0; raises with its output if not."""
+    out, _ = proc.communicate(timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve {label}: exit {proc.returncode}\n"
+                             f"{out[-4000:]}")
+    return out
+
+
+def _exported(proc, label, path):
+    """Seconds, bytes and kernel nodes of an export child's artifact."""
+    out = _child_output(proc, label)
+    line, = [l for l in out.splitlines() if l.startswith("[serve] wrote")]
+    seconds = float(line.rsplit(" in ", 1)[1].split()[0])
+    with open(path + ".meta.json") as fp:
+        meta = json.load(fp)
+    info = dict(export_s=seconds, bytes=os.path.getsize(path),
+                kernels=meta["kernels"])
+    print(f"serve export {label}: {info['bytes']} bytes in {seconds!r} s, "
+          f"kernel nodes {info['kernels']}")
+    return info
+
+
+def _replay_kernels(run):
+    """(device busy ms, {jacobi, group_norm: launches}) of one ``run()``
+    under the profiler."""
+    busy, events = _device_profile(run)
+    return busy, dict(
+        jacobi=sum(c for _, c, n in events if "jacobi_tile" in n),
+        group_norm=sum(c for _, c, n in events if "gn_cluster" in n))
+
+
+def _hold_loaded(label, art, ins, want, nodes, per_call):
+    """A loaded artifact's kernel nodes, the launches of its first call
+    (warm-ups and capture) and of a replay, and its outputs bit-equal to
+    the in-process graph's ``want``; returns its numbers."""
+    from panodepth_torch import serve
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    got_nodes = serve.kernel_nodes(art.program)
+    kj.LAUNCHES = kg.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = art(*ins)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    busy, replayed = _replay_kernels(lambda: art(*ins))
+    print(f"serve {label}: kernel nodes {got_nodes} (expected {nodes}); "
+          f"launches at the first call {launches} (expected "
+          f"{ {k: graph_launches(v) for k, v in per_call.items()} }), in a "
+          f"replay {replayed}; cold first call {cold_ms!r} ms; outputs "
+          f"bit-equal to the in-process graph {equal}")
+    if got_nodes != nodes:
+        raise AssertionError(f"serve {label}: kernel nodes {got_nodes}")
+    if launches != {k: graph_launches(v) for k, v in per_call.items()}:
+        raise AssertionError(f"serve {label}: launches {launches}")
+    if busy <= 0:
+        raise AssertionError(f"serve {label}: the profiler saw no device "
+                             f"time in a replay")
+    if replayed != per_call:
+        raise AssertionError(f"serve {label}: a replay ran {replayed}")
+    if not equal:
+        raise AssertionError(f"serve {label}: the loaded artifact differs "
+                             f"from the in-process graph")
+    return dict(cold_ms=cold_ms, launches=launches, replayed=replayed,
+                nodes=got_nodes)
+
+
+def _serve_daemon(art, label, bodies, ctype, want, clients, requests,
+                  refusals=()):
+    """A Daemon on ``art`` (loopback, any port) and a burst from ``clients``
+    threads of ``requests`` posts each, body ``k % len(bodies)`` in turn;
+    every answer must decode to ``want[k]``.  Then /healthz, /describe and
+    each of ``refusals`` (path, body or None for a GET, content type,
+    status code, text of the error): the daemon must answer with that code
+    and text.  Returns the /stats snapshot and the burst's wall seconds."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from panodepth_torch import daemon as pdaemon
+    from panodepth_torch import io as pio
+
+    d = pdaemon.Daemon(art, port=0, max_delay_ms=10.0)
+    server = threading.Thread(target=d.serve_forever, daemon=True)
+    server.start()
+    url = "http://%s:%d" % d.address
+    answers, errors = {}, []
+
+    def client(c):
+        try:
+            for r in range(requests):
+                k = (c * requests + r) % len(bodies)
+                req = urllib.request.Request(url + "/infer", data=bodies[k],
+                                             headers={"Content-Type": ctype})
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    body = resp.read()
+                if ctype.startswith("image/"):
+                    same = np.array_equal(pio.read_png("answer", body),
+                                          want[k])
+                else:
+                    got = np.load(stdio.BytesIO(body))
+                    same = all(np.array_equal(got[f"out{j}"], w)
+                               for j, w in enumerate(want[k]))
+                answers[(c, r)] = same
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(url + "/stats", timeout=30) as resp:
+            stats = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/describe", timeout=30) as resp:
+            described = json.loads(resp.read())
+        if health != dict(status="ok", kind=art.meta["kind"],
+                          batch=d.batcher.batch) or described != art.meta:
+            raise AssertionError(f"serve daemon {label}: /healthz {health}")
+        for path, body, rtype, code, text in refusals:
+            req = urllib.request.Request(url + path, data=body,
+                                         headers={"Content-Type": rtype})
+            try:
+                urllib.request.urlopen(req, timeout=60).close()
+                got = (200, "")
+            except urllib.error.HTTPError as e:
+                got = (e.code, json.loads(e.read())["error"])
+            if got[0] != code or text not in got[1]:
+                raise AssertionError(f"serve daemon {label}: {path} gave "
+                                     f"{got}, expected {code} {text!r}")
+        print(f"serve daemon {label}: /healthz, /describe and "
+              f"{len(refusals)} refusals "
+              f"{[r[3] for r in refusals]} as expected")
+    finally:
+        d.stop()
+        server.join(timeout=30)
+    if errors or len(answers) != clients * requests:
+        raise AssertionError(f"serve daemon {label}: {len(answers)} answers,"
+                             f" errors {errors[:3]}")
+    differ = sum(not same for same in answers.values())
+    if differ:
+        raise AssertionError(f"serve daemon {label}: {differ} answers "
+                             f"differ from the direct artifact call")
+    # the burst, and the warm-up (a request, but no latency sample)
+    if stats["requests"] != stats["items"] or \
+            stats["requests"] != clients * requests + 1:
+        raise AssertionError(f"serve daemon {label}: stats {stats}")
+    return stats, wall
+
+
+def phase_serve(cfg, scenes, persp, base, rgbs_u8):
+    """The serving path: the 2048 merge (batch 4) and e2e (FastPanoNet + NF,
+    batch 2) exported by ``python -m panodepth_torch.serve`` and every other
+    family's e2e graph at batch 1, each export in a child process of its
+    own, all at once; each artifact loaded here and held bit-equal to its
+    in-process graph with its kernel nodes and launches, then in a fresh
+    process; the daemon over both; the replays timed in turns against the
+    in-process graphs."""
+    from panodepth_torch import daemon as pdaemon
+    from panodepth_torch import jpeg, pipeline, serve
+    from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
+    from panodepth_torch.models import norm as pnorm
+
+    dev = torch.device("cuda")
+    per_batch = sum(jacobi_launches(cfg))
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_serve_") as tmp:
+        path = lambda name: os.path.join(tmp, name + ".pt2")
+        procs = {}
+        try:
+            # (a) every export at once, each in a process of its own
+            procs["merge"] = _serve_cli(
+                "export-merge", path("merge"), "--batch",
+                str(SERVE_MERGE_BATCH), "--layout", cfg.layout_name,
+                "--out-width", str(cfg.out_width))
+            pairs = dict(e2e=(PERSP_CKPT, BASE_CKPT, SERVE_E2E_BATCH))
+            for name, (ckpt, pair, _) in FAMILIES.items():
+                pairs[name] = ((ckpt, BASE_CKPT) if pair == "fastpano"
+                               else (PERSP_CKPT, ckpt)) + (1,)
+            for name, (p_ckpt, b_ckpt, b) in pairs.items():
+                procs[name] = _serve_cli(
+                    "export-e2e", path(name), "--batch", str(b),
+                    "--persp-ckpt", p_ckpt, "--baseline-ckpt", b_ckpt,
+                    "--view-width", "256", "--layout", cfg.layout_name,
+                    "--out-width", str(cfg.out_width))
+            # meanwhile the inputs and the in-process graphs' outputs
+            order = [0, 1, 1, 0]
+            emaps = np.stack([scenes[k]["base"] for k in order])
+            pmaps = np.stack([np.stack(scenes[k]["views"]) for k in order])
+            rgbs = np.stack(rgbs_u8)
+            graph = dict(
+                merge=pipeline.compiled_merge_batched(cfg, "auto", dev),
+                e2e=build_batched_e2e(persp, cfg, view_width=256,
+                                      base_model=base, base_w=512)[0])
+            ins = dict(merge=[torch.tensor(emaps, device=dev),
+                              torch.tensor(pmaps, device=dev)],
+                       e2e=[torch.tensor(rgbs, device=dev)])
+            want = {k: graph[k](*ins[k]) for k in graph}
+            np.savez(os.path.join(tmp, "merge.in.npz"), a0=emaps, a1=pmaps)
+            np.savez(os.path.join(tmp, "e2e.in.npz"), a0=rgbs)
+            exports = {k: _exported(procs.pop(k), k, path(k))
+                       for k in ("merge", "e2e")}
+            procs["fresh"] = subprocess.Popen(
+                [sys.executable, "-c", _FRESH_LOAD, ROOT, tmp, "merge",
+                 "e2e"], cwd=tmp, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+
+            # (b), (c) loaded here: kernel nodes, launches, bit-equal
+            arts, loaded = {}, {}
+            # a jacobi node per pyramid level, a group_norm node per norm
+            # call (29 a FastPanoNet forward, one forward a panorama)
+            jac_op, gn_op = serve.KERNEL_OPS
+            gn_calls = SERVE_E2E_BATCH * GN_CALLS
+            expect = dict(
+                merge=({jac_op: 3}, dict(jacobi=per_batch, group_norm=0)),
+                e2e=({jac_op: 3, gn_op: gn_calls},
+                     dict(jacobi=per_batch, group_norm=gn_calls)))
+            for k in ("merge", "e2e"):
+                t0 = time.perf_counter()
+                arts[k] = serve.load(path(k))
+                load_s = time.perf_counter() - t0
+                print(f"serve {k}: loaded in {load_s!r} s")
+                loaded[k] = dict(load_s=load_s, **exports[k], **_hold_loaded(
+                    k, arts[k], ins[k], want[k], *expect[k]))
+
+            # (e) the daemon: a burst of JPEG panoramas at the e2e artifact,
+            # a few .npz merges at the merge artifact
+            panos = [make_rgb(SEED + 10 + i, 2048) for i in range(4)]
+            bodies = [jpeg.encode(p, quality=95) for p in panos]
+            t0 = time.perf_counter()
+            decoded = [pdaemon.decode_image_rgb(b) for b in bodies]
+            decode_ms = (time.perf_counter() - t0) * 1e3 / len(bodies)
+            direct = np.concatenate([arts["e2e"](np.stack(decoded[i:i + 2]))[
+                0].cpu().numpy() for i in range(0, len(decoded), 2)])
+            t0 = time.perf_counter()
+            for d in direct:
+                pdaemon.encode_png16(d)
+            encode_ms = (time.perf_counter() - t0) * 1e3 / len(direct)
+            progressive = bytearray(bodies[0])
+            progressive[progressive.index(b"\xff\xc0") + 1] = 0xC2
+            stats, wall = _serve_daemon(
+                arts["e2e"], "e2e", bodies, "image/jpeg", direct,
+                SERVE_CLIENTS, SERVE_REQUESTS, refusals=[
+                    ("/infer", bytes(progressive), "image/jpeg", 400,
+                     "progressive JPEG is not supported"),
+                    ("/infer", jpeg.encode(panos[0][:512]), "image/jpeg",
+                     400, "artifact expects"),
+                    ("/infer", b"x" * 64, "application/npz", 400, ""),
+                    ("/nope", None, "text/plain", 404, "no route")])
+            n_req = SERVE_CLIENTS * SERVE_REQUESTS
+            daemon = dict(
+                requests=n_req, wall_s=wall, panos_per_s=n_req / wall,
+                p50_ms=stats.get("latency_ms_p50"),
+                p99_ms=stats.get("latency_ms_p99"),
+                mean_fill=stats["mean_batch_fill"],
+                batches=stats["batches"], decode_ms=decode_ms,
+                encode_ms=encode_ms, jpeg_bytes=[len(b) for b in bodies])
+            print(f"serve daemon e2e: {n_req} JPEG requests from "
+                  f"{SERVE_CLIENTS} clients in {wall!r} s "
+                  f"({daemon['panos_per_s']!r} panoramas/s), every PNG "
+                  f"bit-equal to the direct call; latency p50 "
+                  f"{daemon['p50_ms']!r} ms, p99 {daemon['p99_ms']!r} ms; "
+                  f"mean batch fill {daemon['mean_fill']!r} over "
+                  f"{daemon['batches']} batches (the warm-up's batch "
+                  f"included, its latency not); "
+                  f"host decode {decode_ms!r} ms, PNG16 encode "
+                  f"{encode_ms!r} ms a panorama; stats {stats}")
+            npz = []
+            for k in (0, 1):
+                buf = stdio.BytesIO()
+                np.savez(buf, in0=emaps[k], in1=pmaps[k])
+                npz.append(buf.getvalue())
+            bad = stdio.BytesIO()
+            np.savez(bad, in0=emaps[0][:256], in1=pmaps[0])
+            m_stats, m_wall = _serve_daemon(
+                arts["merge"], "merge", npz, "application/npz",
+                [[t[k].cpu().numpy() for t in want["merge"]] for k in (0, 1)],
+                3, 1, refusals=[
+                    ("/infer", bad.getvalue(), "application/npz", 400,
+                     "expected shape"),
+                    ("/infer", bodies[0], "image/jpeg", 400, "npz")])
+            daemon["merge_npz"] = dict(requests=3, wall_s=m_wall,
+                                       p50_ms=m_stats.get("latency_ms_p50"),
+                                       mean_fill=m_stats["mean_batch_fill"])
+            print(f"serve daemon merge: 3 .npz requests in {m_wall!r} s, "
+                  f"each answer bit-equal to the direct call; stats "
+                  f"{m_stats}")
+
+            # (f) every other family, batch 1, against its in-process graph
+            families = {}
+            for name, (ckpt, pair, _) in FAMILIES.items():
+                info = _exported(procs.pop(name), name, path(name))
+                net, _ = load_model_checkpoint(ckpt)
+                p_net, b_net = (net, base) if pair == "fastpano" \
+                    else (persp, net)
+                norms = sum(isinstance(m, pnorm.GroupNorm)
+                            for n in (p_net, b_net) for m in n.modules())
+                fam_graph = build_batched_e2e(p_net, cfg, view_width=256,
+                                              base_model=b_net, base_w=512)[0]
+                x = ins["e2e"][0][:1]
+                t0 = time.perf_counter()
+                art = serve.load(path(name))
+                info["load_s"] = time.perf_counter() - t0
+                info.update(_hold_loaded(
+                    f"families {name}", art, [x], fam_graph(x),
+                    {jac_op: 3, gn_op: norms},
+                    dict(jacobi=per_batch, group_norm=norms)))
+                families[name] = info
+                del net, fam_graph, art
+                torch.cuda.empty_cache()
+
+            # (c) again in the fresh process
+            fresh = json.loads(_child_output(procs.pop("fresh"),
+                                             "fresh load").splitlines()[-1])
+            for k in ("merge", "e2e"):
+                with np.load(os.path.join(tmp, k + ".fresh.npz")) as z:
+                    same = all(np.array_equal(z[f"arr_{j}"], w.cpu().numpy())
+                               for j, w in enumerate(want[k]))
+                print(f"serve {k} in a fresh process (no JAX): loaded in "
+                      f"{fresh[k]['load_s']!r} s, cold first call "
+                      f"{fresh[k]['cold_ms']!r} ms, launches "
+                      f"{fresh[k]['launches']}, outputs bit-equal to the "
+                      f"in-process graph here {same}")
+                if not same or fresh[k]["launches"] != loaded[k]["launches"]:
+                    raise AssertionError(f"serve {k}: the fresh process "
+                                         f"differs")
+                loaded[k]["fresh"] = fresh[k]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.communicate()
+
+        # (d) the replays in turns against the in-process graphs, with no
+        # child running
+        for k, b in (("merge", SERVE_MERGE_BATCH), ("e2e", SERVE_E2E_BATCH)):
+            runs = dict(artifact=lambda: arts[k](*ins[k]),
+                        graph=lambda: graph[k](*ins[k]))
+            turns = {"artifact": [], "graph": []}
+            for form in ("artifact", "graph", "graph", "artifact"):
+                turns[form].append(_timed(runs[form]))
+            for form, run in runs.items():
+                host = float(np.median(turns[form]))
+                busy, _ = _device_profile(run)
+                loaded[k][form] = dict(
+                    ms_per_pano=host / b, turns=turns[form],
+                    busy_ms_per_pano=busy / b,
+                    idle_share=(1 - busy / host) if busy > 0 else None)
+                print(f"serve A/B {k} b{b} {form}: {host / b!r} ms per "
+                      f"panorama (host clock to synchronize, median of the "
+                      f"turns {turns[form]!r} ms per call), device busy "
+                      f"{busy / b!r} ms per panorama, idle share "
+                      f"{loaded[k][form]['idle_share']!r}")
+        del arts
+        torch.cuda.empty_cache()
+    return dict(loaded, daemon=daemon, families=families)
+
+
 def pio_metrics(scene, emap, out, cfg):
     """The u16 output scored against the scene's gt."""
     from panodepth_torch import paired_metrics
@@ -2100,6 +2538,8 @@ def main():
     with Phase("families"):
         families = phase_families(persp, base, rgbs)
         phase_families_cli(rgbs)
+    with Phase("serve"):
+        served = phase_serve(cfg, scenes, persp, base, rgbs)
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
@@ -2107,10 +2547,12 @@ def main():
         launches=e2e["launches"]["jacobi"], max_abs_err=jac["max_abs_err"],
         ms=jac["ms"], kernel_ms=jac["ms"], plain_ms=jac["plain_ms"],
         bound_ms=jac["bound_ms"], bound_by=jac["bound_by"], library_ms=None,
-        launches_by_path=dict(merge=merge_launches,
-                              e2e=e2e["launches"]["jacobi"],
-                              merge_batched=graphs["batched_launches"],
-                              e2e_graph=e2e["launches"]["jacobi"]),
+        launches_by_path=dict(
+            merge=merge_launches, e2e=e2e["launches"]["jacobi"],
+            merge_batched=graphs["batched_launches"],
+            e2e_graph=e2e["launches"]["jacobi"],
+            serve_merge=served["merge"]["launches"]["jacobi"],
+            serve_e2e=served["e2e"]["launches"]["jacobi"]),
         ms_per_pano_by_batch=batched,
         device_ms_in_e2e_graph=e2e["kernel_ms"].get("jacobi"),
         levels=jac["levels"]), dict(
@@ -2127,14 +2569,19 @@ def main():
             e2e=e2e["launches"]["group_norm"],
             e2e_graph=e2e["launches"]["group_norm"],
             **{f"e2e_{k}": v["e2e"]["launches"]["group_norm"]
-               for k, v in families.items()}),
+               for k, v in families.items()},
+            serve_merge=served["merge"]["launches"]["group_norm"],
+            serve_e2e=served["e2e"]["launches"]["group_norm"],
+            **{f"serve_{k}": v["launches"]["group_norm"]
+               for k, v in served["families"].items()}),
         families={k: dict(v["groupnorm"], e2e_ms_per_pano=v["e2e"][
             "ms_per_pano"], e2e_idle_share=v["e2e"]["idle_share"])
             for k, v in families.items()})]
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
-          f"stage A: {stage_a!r}; graphs: {graphs!r}; card: {smi}")
+          f"stage A: {stage_a!r}; graphs: {graphs!r}; serve: {served!r}; "
+          f"card: {smi}")
     print(f"chip_smoke wall time: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -35,6 +35,11 @@ between; every shape is static per configuration, as under ``jax.jit``.
 - **CPU and failures.** On the CPU the function runs eagerly: the CPU has
   no graph.  On the card a capture that fails raises
   :class:`CaptureError`; it never falls back to the eager function.
+- **Tracers.** ``torch.export`` (``serve.py``) runs the same functions on
+  fake tensors.  A table of :func:`device_cache` is then still computed
+  on real tensors (:func:`untraced`), so the cache never keeps a fake
+  tensor for a later eager call, and the exporter lifts the real table
+  into the program as a constant, as a graph holds it.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from typing import Callable, Iterable
 
 import numpy as np
 import torch
+from torch.utils import _python_dispatch
 
 # eager calls on a side stream before each capture
 WARMUP = 2
@@ -79,16 +85,35 @@ def holding(held: list):
         _HOLDING.pop()
 
 
+def tracing() -> bool:
+    """True while a tracer (``torch.export``, ``torch.compile``) or another
+    dispatch mode (a ``FakeTensorMode``) runs the calling code: tensors
+    made now may be fake."""
+    return bool(torch.compiler.is_compiling()
+                or _python_dispatch._get_current_dispatch_mode_stack())
+
+
+def untraced():
+    """A block in which tensors are real even under a tracer (every
+    dispatch mode set aside); to a tracer, what it makes is a constant."""
+    return _python_dispatch._disable_current_modes()
+
+
 def device_cache(maxsize: int):
     """``functools.lru_cache(maxsize)`` for a function that returns tensors
     on a device that a captured graph may read: every call hands its
     result to :func:`hold`, so an evicted table stays alive for as long
-    as a graph captured with it is kept."""
+    as a graph captured with it is kept.  Under a tracer the function
+    runs :func:`untraced`: the cache keeps only real tensors, and a traced
+    program reads the table as a constant."""
     def wrap(fn):
         cached = functools.lru_cache(maxsize=maxsize)(fn)
 
         @functools.wraps(fn)
         def call(*args):
+            if tracing():
+                with untraced():
+                    return hold(cached(*args))
             return hold(cached(*args))
 
         call.cache_clear = cached.cache_clear

@@ -155,10 +155,10 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body)))
 
 
-def _write_png(filename: str, arr: np.ndarray, level: int) -> None:
-    """A uint8 or uint16 gray (H, W) or RGB (H, W, 3) PNG.  Rows carry the
-    Up filter (the first row's prior is zero, so it equals None there);
-    ``level`` is the deflate level, always lossless."""
+def png_bytes(arr: np.ndarray, level: int) -> bytes:
+    """A uint8 or uint16 gray (H, W) or RGB (H, W, 3) PNG, encoded.  Rows
+    carry the Up filter (the first row's prior is zero, so it equals None
+    there); ``level`` is the deflate level, always lossless."""
     h, w = arr.shape[:2]
     channels = 1 if arr.ndim == 2 else arr.shape[2]
     depth = 16 if arr.dtype == np.uint16 else 8
@@ -168,12 +168,19 @@ def _write_png(filename: str, arr: np.ndarray, level: int) -> None:
     up[1:] -= rows[:-1]  # uint8 arithmetic wraps mod 256, as the filter does
     filtered = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
     colour = 0 if channels == 1 else 2
+    return b"".join((
+        _PNG_SIG,
+        _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0,
+                                        0, 0)),
+        _png_chunk(b"IDAT", zlib.compress(filtered.tobytes(), level)),
+        _png_chunk(b"IEND", b"")))
+
+
+def _write_png(filename: str, arr: np.ndarray, level: int) -> None:
+    """:func:`png_bytes` written to ``filename``."""
+    data = png_bytes(arr, level)
     with open(filename, "wb") as fp:
-        fp.write(_PNG_SIG)
-        fp.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
-                                                 colour, 0, 0, 0)))
-        fp.write(_png_chunk(b"IDAT", zlib.compress(filtered.tobytes(), level)))
-        fp.write(_png_chunk(b"IEND", b""))
+        fp.write(data)
 
 
 def save_png16(filename: str, data: np.ndarray, level: int = 1) -> None:
@@ -300,14 +307,18 @@ def read_image(filename: str) -> np.ndarray:
     """A PNG, JPEG or BMP file's pixels, uint8 or uint16, (H, W) or
     (H, W, C); the format is told by the first bytes, as Pillow does."""
     with open(filename, "rb") as fp:
-        data = fp.read()
+        return decode_image(fp.read(), filename)
+
+
+def decode_image(data: bytes, name: str) -> np.ndarray:
+    """:func:`read_image` of a file's bytes; errors name ``name``."""
     if data[:8] == _PNG_SIG:
-        return read_png(filename, data)
+        return read_png(name, data)
     if data[:2] == b"\xff\xd8":
-        return jpeg.decode(data, filename)
+        return jpeg.decode(data, name)
     if data[:2] == b"BM":
-        return _read_bmp(data, filename)
-    raise ValueError(f"{filename}: not a PNG, JPEG or BMP file")
+        return _read_bmp(data, name)
+    raise ValueError(f"{name}: not a PNG, JPEG or BMP file")
 
 
 def _to01(arr: np.ndarray) -> np.ndarray:

@@ -20,6 +20,12 @@ Both take an NCHW activation ``x`` (bf16 or f32) and f32 per-channel
 takes the kernel for a CUDA tensor and the twin for a CPU tensor,
 ``kernel`` always the kernel (which raises on a CPU tensor), ``torch``
 always the twin.  Nothing falls back.
+
+``cuda_group_norm`` reaches the kernel through the PyTorch operator
+``panodepth_torch::group_norm`` (``torch.library.custom_op``, CUDA only,
+with a fake implementation for tracers), so a program that
+``torch.export`` traces holds the kernel as one node (``serve.py``).  The
+operator has no CPU implementation: on a CPU tensor it raises.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ import ctypes
 import dataclasses
 
 import torch
+
+# the operators' namespace: the package's name, so that an earlier
+# checkout's wrappers imported beside these (scripts/torch_kernel_ab.py)
+# register operators of their own
+OPS = __name__.split(".")[0]
 
 # kernel launches made by cuda_group_norm in this process (one per call)
 LAUNCHES = 0
@@ -222,10 +233,30 @@ def cuda_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-6,
                            "'torch' route to train")
     num_groups = int(num_groups)
     _check(x, scale, bias, num_groups, out_dtype)
+    return _group_norm_op(x, scale, bias, num_groups, float(eps), bool(relu),
+                          out_dtype)
+
+
+@torch.library.custom_op(f"{OPS}::group_norm", mutates_args=(),
+                         device_types="cuda")
+def _group_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   num_groups: int, eps: float, relu: bool,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """The operator's CUDA implementation: one launch of the call's plan
+    (checked arguments).  The inputs are made contiguous here: a traced
+    program may pass a tensor whose strides its tracer got wrong (a cuDNN
+    output in channels-last order that the trace took for contiguous, so
+    that the ``contiguous()`` before the call was dropped)."""
+    x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
     n, c = x.shape[:2]
     hw = x.numel() // max(n * c, 1)
     plan = plan_for(n, c, hw, num_groups, x.element_size())
     return run_plan(x, scale, bias, eps, relu, out_dtype, plan)
+
+
+@_group_norm_op.register_fake
+def _(x, scale, bias, num_groups, eps, relu, out_dtype):
+    return torch.empty(x.shape, dtype=out_dtype, device=x.device)
 
 
 def run_plan(x, scale, bias, eps, relu, out_dtype, plan: GroupNormPlan):

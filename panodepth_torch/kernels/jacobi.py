@@ -10,6 +10,12 @@ Both have the signature of ``fusion.jacobi``.  :func:`resolve` maps the
 ``--jacobi`` choice to one of them: ``auto`` takes the kernel for a CUDA
 tensor and the twin for a CPU tensor, ``kernel`` always the kernel (which
 raises on a CPU tensor), ``torch`` always the twin.  Nothing falls back.
+
+``cuda_jacobi`` reaches the kernel through the PyTorch operator
+``panodepth_torch::jacobi`` (``torch.library.custom_op``, CUDA only, with
+a fake implementation for tracers), so a program that ``torch.export``
+traces holds the kernel as one node (``serve.py``).  The operator has no
+CPU implementation: on a CPU tensor it raises.
 """
 
 from __future__ import annotations
@@ -18,6 +24,11 @@ import ctypes
 import dataclasses
 
 import torch
+
+# the operators' namespace: the package's name, so that an earlier
+# checkout's wrappers imported beside these (scripts/torch_kernel_ab.py)
+# register operators of their own
+OPS = __name__.split(".")[0]
 
 # kernel launches made by cuda_jacobi in this process
 LAUNCHES = 0
@@ -209,8 +220,26 @@ def cuda_jacobi(buf, target, covered, iterations, step, reg):
                          f"got {iterations}")
     if iterations == 0:
         return buf.clone()
+    return _jacobi_op(buf, target, covered, iterations, float(step),
+                      float(reg))
+
+
+@torch.library.custom_op(f"{OPS}::jacobi", mutates_args=(),
+                         device_types="cuda")
+def _jacobi_op(buf: torch.Tensor, target: torch.Tensor, covered: torch.Tensor,
+               iterations: int, step: float, reg: float) -> torch.Tensor:
+    """The operator's CUDA implementation: the launches of the level's plan
+    (checked arguments, ``iterations`` > 0).  The inputs are made
+    contiguous here, as ``group_norm``'s are: a traced program's strides
+    may differ from the eager call's."""
+    buf, target, covered = (t.contiguous() for t in (buf, target, covered))
     h, w = buf.shape[-2:]
     return run_plan(buf, target, covered, step, reg, plan_for(h, w, iterations))
+
+
+@_jacobi_op.register_fake
+def _(buf, target, covered, iterations, step, reg):
+    return torch.empty_like(buf)
 
 
 def run_plan(buf, target, covered, step, reg, plan: JacobiPlan):

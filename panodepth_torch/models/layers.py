@@ -25,6 +25,7 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses import fake_tensor
 
 from .. import graphs
 
@@ -40,9 +41,27 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
 class Derived(nn.Module):
     """A module whose forward uses a tensor derived from its parameters
     (a cast, a standardisation), computed once and kept until a parameter
-    is replaced, moved or written in place."""
+    is replaced, moved or written in place.
+
+    Under a tracer (``torch.export``) the value is made from the real
+    parameters outside the trace, so an exported program holds it as a
+    constant and casts nothing per call, as a captured graph does.  A
+    tracer that has made the parameters themselves fake (the module is a
+    submodule of the traced module) is refused: export a function that
+    closes over the nets, as ``serve`` does."""
 
     def derived(self, make, *params):
+        if graphs.tracing():
+            if any(fake_tensor.is_fake(p) for p in params):
+                raise RuntimeError(
+                    f"{type(self).__name__}: traced with fake parameters; "
+                    f"keep the module out of the traced module's "
+                    f"submodules")
+            with graphs.untraced():
+                return self._derived(make, params)
+        return self._derived(make, params)
+
+    def _derived(self, make, params):
         key = tuple((p.data_ptr(), p.dtype, p._version) for p in params)
         if getattr(self, "_derived_key", None) != key:
             self._derived_value = make()

@@ -35,8 +35,9 @@ def test_port_imports_neither_jax_nor_panodepth():
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "panodepth", "PIL")
                      or m.startswith(("jax.", "panodepth.", "PIL.")))
-        # the e2e slice's modules are among those imported
+        # the e2e and serving slices' modules are among those imported
         need = {"panodepth_torch.e2e", "panodepth_torch.kernels.groupnorm",
+                "panodepth_torch.serve", "panodepth_torch.daemon",
                 "panodepth_torch.models.norm",
                 "panodepth_torch.models.weights",
                 "panodepth_torch.models.layers",

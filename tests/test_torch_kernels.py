@@ -372,3 +372,42 @@ def test_cuda_group_norm_constant_group_and_module_route(cuda_device):
     with pytest.raises(RuntimeError, match="no backward"):
         m(x.requires_grad_(True))
     assert kgn.LAUNCHES == 1
+
+
+@pytest.mark.cuda
+def test_cuda_operators_take_any_strides_and_export(cuda_device):
+    """The operators (what an exported graph calls) make their inputs
+    contiguous themselves, so a channels-last activation or a transposed
+    map gets the bits of its contiguous copy; an exported function holds
+    each as one node and replays them bit-equal to the eager call."""
+    x, scale, bias = _gn_case((2, 32, 12, 20), 8, 7, cuda_device,
+                              torch.bfloat16)
+    cl = x.to(memory_format=torch.channels_last)
+    assert not cl.is_contiguous()
+    got = torch.ops.panodepth_torch.group_norm(cl, scale, bias, 8, 1e-6,
+                                                True, torch.float32)
+    want = kgn.cuda_group_norm(x, scale, bias, 8, 1e-6, True)
+    buf, tgt, cov = _case(64, 32, 9, device=cuda_device)
+    got_j = torch.ops.panodepth_torch.jacobi(buf.t(), tgt.t(), cov.t(), 20,
+                                             0.5, 1e-4)
+    want_j = kj.cuda_jacobi(buf.t().contiguous(), tgt.t().contiguous(),
+                            cov.t().contiguous(), 20, 0.5, 1e-4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_j, want_j)
+
+    class Both(torch.nn.Module):
+        def forward(self, x, buf, tgt):
+            y = kgn.cuda_group_norm(x, scale, bias, 8, 1e-6, True)
+            return y, kj.cuda_jacobi(buf, tgt, cov, 20, 0.5, 1e-4)
+
+    program = torch.export.export(Both(), (x, buf, tgt), strict=False)
+    names = sorted(n.target.name() for n in program.graph.nodes
+                   if isinstance(n.target, torch._ops.OpOverload)
+                   and n.target.name().startswith("panodepth_torch::"))
+    assert names == ["panodepth_torch::group_norm", "panodepth_torch::jacobi"]
+    kgn.LAUNCHES = kj.LAUNCHES = 0
+    y, z = program.module()(x, buf, tgt)
+    torch.cuda.synchronize()
+    assert kgn.LAUNCHES == 1 and kj.LAUNCHES == kj.launches_for(64, 32, 20)
+    assert torch.equal(y, want)
+    assert torch.equal(z, kj.cuda_jacobi(buf, tgt, cov, 20, 0.5, 1e-4))

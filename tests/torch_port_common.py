@@ -78,3 +78,26 @@ def flax_flat(params):
 
     return {jax.tree_util.keystr(k): np.asarray(v, np.float32)
             for k, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+
+
+
+def zoo_pair(root, pano_width):
+    """The zoo's NF perspective net and FastPanoNet as checkpoints under
+    ``root`` (links to ``zoo/``) whose sidecars run the baseline net
+    ``pano_width`` wide; returns the (persp, baseline) paths."""
+    import json
+    import os
+
+    zoo = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "zoo")
+    paths = []
+    for name in ("perspective", "fastpano"):
+        src = os.path.join(zoo, f"{name}_final.params.npz")
+        dst = os.path.join(root, os.path.basename(src))
+        os.symlink(src, dst)
+        with open(os.path.join(zoo, f"{name}.config.json")) as fp:
+            arch = json.load(fp)
+        with open(os.path.join(root, f"{name}.config.json"), "w") as fp:
+            json.dump(dict(arch, pano_width=pano_width), fp)
+        paths.append(dst)
+    return tuple(paths)

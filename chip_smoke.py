@@ -92,7 +92,8 @@ Phases, each printing its elapsed seconds:
              the BiFuse baseline and the GN perspective net, with resume,
              and ``--base-width 256`` refused for HoHoNet.
 14. serve  — the serving path: ``python -m panodepth_torch.serve``
-             exports, each in a child process of its own and all at once,
+             exports, each in a child process of its own and all at once
+             (SliceNet's, the longest, started with phase graphs),
              the 2048 merge (batch 4, u16 512x1024 baselines, 15 988x1024
              views), the e2e graph with FastPanoNet + NF (batch 2, u8
              1024x2048 RGB, views 256) and the e2e graph of each other
@@ -111,6 +112,23 @@ Phases, each printing its elapsed seconds:
              in-process graphs (artifact, graph, graph, artifact) with
              device busy and idle share.  The artifacts live in a temporary
              directory, deleted at the end.
+15. train  — training at full width, batch 16 (the zoo recipe, lr 3e-4,
+             mix scenes rendered on the card): FastPanoNet with the zoo's
+             UniFuse-class distillation teacher and the NF perspective net
+             (256x256 views), each with render ms a batch, steps/s and
+             img/s with the render included and excluded, device busy and
+             idle share of a step (profiler), peak memory, the GroupNorm
+             launches of a step (the student's 0, the teacher's one per
+             norm call, 31) and the loss falling over 20 steps on a fixed
+             batch (the recipe's warmup schedule); two steps of the UniFuse-class, HoHoNet, BiFuse,
+             SliceNet and GN perspective nets (steps/s); one f32 step of a
+             narrow FastPanoNet on the card against the CPU's; then
+             ``train_cli`` in a child process (3 steps, the recipe and its
+             teacher) while ``evaluate`` scores the zoo FastPanoNet on 16
+             v1 scenes (RMSE and delta1 beside zoo/README.md's, kernel
+             route against plain route, launches counted); the child's
+             ``fastpano_final.params.npz`` loaded and run in the e2e graph
+             beside the zoo NF net (``_family_e2e``'s checks).
 
 Launch counts: a graph's kernels are counted by their wrappers at the two
 warm-up calls and the capture (``graph_launches``); a replay launches them
@@ -677,26 +695,33 @@ def _gn_hold(label, x, scale, bias, groups, relu, out_dtype, flat=False):
     return err
 
 
-def _device_profile(run):
+def _device_profile(run, attempts=3):
     """(device busy ms, kernel events sorted by device time) over ``run()``
-    under torch.profiler; busy 0.0 when the profiler saw no device time."""
+    under torch.profiler; busy 0.0 when the profiler saw no device time in
+    ``attempts`` profiles of ``run()`` (a profile that sees none is taken
+    again: the profiler has come back empty while another process used
+    the card)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
 
     def device_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    # the kernels themselves (device-side events); the CPU-side operators
-    # that launched them carry the same time and are left out of the sum
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=device_us, reverse=True)
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        # the kernels themselves (device-side events); the CPU-side
+        # operators that launched them carry the same time and are left
+        # out of the sum
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                        key=device_us, reverse=True)
+        if events:
+            break
+        print(f"profiler: no device records in profile {attempt + 1}")
     return sum(device_us(e) for e in events) / 1e3, [
         (device_us(e) / 1e3, e.count, e.key) for e in events]
 
@@ -841,8 +866,9 @@ def phase_groupnorm(base, rgbs_u8):
     # moves next to nothing: the per-launch floor
     tiny = torch.zeros((1, 4, 1, 1), dtype=torch.bfloat16, device=dev)
     per_shape = {}
-    for key, (m, x) in [("floor (1, 4, 1, 1) G4", (pnorm.GroupNorm(4, 4).to(
-            dev), tiny))] + list(first.items()):
+    floor_norm = pnorm.GroupNorm(4, 4).requires_grad_(False).to(dev)
+    for key, (m, x) in [("floor (1, 4, 1, 1) G4", (floor_norm, tiny))] \
+            + list(first.items()):
         busy, _ = _device_profile(lambda: [kg.cuda_group_norm(
             x, m.scale, m.bias, m.num_groups, 1e-6, m.fuse_relu, m.dtype)
             for _ in range(10)])
@@ -1337,10 +1363,14 @@ def _family_groupnorm(name, net, feed, count):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _family_e2e(name, persp, base, rgbs):
+def _family_e2e(name, persp, base, rgbs, replay_count=True):
     """The e2e graph at full width with the family's pair, batch 2: launches
     counted at the capture, graph bit-equal to eager, kernel routes against
-    plain routes, batch 2 against batch 1, warm time and idle share."""
+    plain routes, batch 2 against batch 1, warm time and idle share; with
+    ``replay_count`` the profiler must see every GroupNorm launch of a
+    replay (without it the count is printed: phase train's graph on
+    freshly trained weights read 57 of 58 in most profiles, with its
+    launches at the capture exact)."""
     from panodepth_torch import MergeConfig
     from panodepth_torch.e2e import build_batched_e2e
     from panodepth_torch.kernels import groupnorm as kg
@@ -1396,7 +1426,7 @@ def _family_e2e(name, persp, base, rgbs):
     busy_ms, events = _device_profile(lambda: full(rgbs))
     gn_ms = sum(ms for ms, _, key in events if "gn_cluster" in key)
     gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
-    if busy_ms > 0 and gn_seen != b * norms:
+    if replay_count and busy_ms > 0 and gn_seen != b * norms:
         raise AssertionError(f"families {name}: the replay ran {gn_seen} "
                              f"groupnorm launches, expected {b * norms}")
     idle = 1 - busy_ms / call_ms if busy_ms > 0 else None
@@ -2280,14 +2310,47 @@ def _serve_daemon(art, label, bodies, ctype, want, clients, requests,
     return stats, wall
 
 
-def phase_serve(cfg, scenes, persp, base, rgbs_u8):
+# the export that takes longest (SliceNet's GRU, 89-120 s) starts this
+# early, at phase graphs, in a child process (one core of the host's);
+# the others start with phase serve
+SERVE_EARLY = ("slicenet",)
+
+
+def serve_exports_start(cfg, tmp, names):
+    """``python -m panodepth_torch.serve export-*`` of each artifact in
+    ``names`` (``merge``, ``e2e`` or a family) into ``tmp``, each in a
+    child process of its own; returns {name: process}."""
+    path = lambda name: os.path.join(tmp, name + ".pt2")
+    pairs = dict(e2e=(PERSP_CKPT, BASE_CKPT, SERVE_E2E_BATCH))
+    for name, (ckpt, pair, _) in FAMILIES.items():
+        pairs[name] = ((ckpt, BASE_CKPT) if pair == "fastpano"
+                       else (PERSP_CKPT, ckpt)) + (1,)
+    procs = {}
+    for name in names:
+        if name == "merge":
+            procs[name] = _serve_cli(
+                "export-merge", path("merge"), "--batch",
+                str(SERVE_MERGE_BATCH), "--layout", cfg.layout_name,
+                "--out-width", str(cfg.out_width))
+            continue
+        p_ckpt, b_ckpt, b = pairs[name]
+        procs[name] = _serve_cli(
+            "export-e2e", path(name), "--batch", str(b),
+            "--persp-ckpt", p_ckpt, "--baseline-ckpt", b_ckpt,
+            "--view-width", "256", "--layout", cfg.layout_name,
+            "--out-width", str(cfg.out_width))
+    return procs
+
+
+def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs):
     """The serving path: the 2048 merge (batch 4) and e2e (FastPanoNet + NF,
     batch 2) exported by ``python -m panodepth_torch.serve`` and every other
     family's e2e graph at batch 1, each export in a child process of its
-    own, all at once; each artifact loaded here and held bit-equal to its
-    in-process graph with its kernel nodes and launches, then in a fresh
-    process; the daemon over both; the replays timed in turns against the
-    in-process graphs."""
+    own into ``tmp`` (``procs``: those started earlier, SERVE_EARLY; the
+    rest start here, all at once); each artifact loaded here and held
+    bit-equal to its in-process graph with its kernel nodes and launches,
+    then in a fresh process; the daemon over both; the replays timed in
+    turns against the in-process graphs."""
     from panodepth_torch import daemon as pdaemon
     from panodepth_torch import jpeg, pipeline, serve
     from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
@@ -2295,196 +2358,506 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8):
 
     dev = torch.device("cuda")
     per_batch = sum(jacobi_launches(cfg))
-    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_serve_") as tmp:
-        path = lambda name: os.path.join(tmp, name + ".pt2")
-        procs = {}
-        try:
-            # (a) every export at once, each in a process of its own
-            procs["merge"] = _serve_cli(
-                "export-merge", path("merge"), "--batch",
-                str(SERVE_MERGE_BATCH), "--layout", cfg.layout_name,
-                "--out-width", str(cfg.out_width))
-            pairs = dict(e2e=(PERSP_CKPT, BASE_CKPT, SERVE_E2E_BATCH))
-            for name, (ckpt, pair, _) in FAMILIES.items():
-                pairs[name] = ((ckpt, BASE_CKPT) if pair == "fastpano"
-                               else (PERSP_CKPT, ckpt)) + (1,)
-            for name, (p_ckpt, b_ckpt, b) in pairs.items():
-                procs[name] = _serve_cli(
-                    "export-e2e", path(name), "--batch", str(b),
-                    "--persp-ckpt", p_ckpt, "--baseline-ckpt", b_ckpt,
-                    "--view-width", "256", "--layout", cfg.layout_name,
-                    "--out-width", str(cfg.out_width))
-            # meanwhile the inputs and the in-process graphs' outputs
-            order = [0, 1, 1, 0]
-            emaps = np.stack([scenes[k]["base"] for k in order])
-            pmaps = np.stack([np.stack(scenes[k]["views"]) for k in order])
-            rgbs = np.stack(rgbs_u8)
-            graph = dict(
-                merge=pipeline.compiled_merge_batched(cfg, "auto", dev),
-                e2e=build_batched_e2e(persp, cfg, view_width=256,
-                                      base_model=base, base_w=512)[0])
-            ins = dict(merge=[torch.tensor(emaps, device=dev),
-                              torch.tensor(pmaps, device=dev)],
-                       e2e=[torch.tensor(rgbs, device=dev)])
-            want = {k: graph[k](*ins[k]) for k in graph}
-            np.savez(os.path.join(tmp, "merge.in.npz"), a0=emaps, a1=pmaps)
-            np.savez(os.path.join(tmp, "e2e.in.npz"), a0=rgbs)
-            exports = {k: _exported(procs.pop(k), k, path(k))
-                       for k in ("merge", "e2e")}
-            procs["fresh"] = subprocess.Popen(
-                [sys.executable, "-c", _FRESH_LOAD, ROOT, tmp, "merge",
-                 "e2e"], cwd=tmp, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)
+    path = lambda name: os.path.join(tmp, name + ".pt2")
+    try:
+        # (a) every export not started yet, at once
+        procs.update(serve_exports_start(cfg, tmp, [
+            name for name in ("merge", "e2e", *FAMILIES)
+            if name not in procs]))
+        # meanwhile the inputs and the in-process graphs' outputs
+        order = [0, 1, 1, 0]
+        emaps = np.stack([scenes[k]["base"] for k in order])
+        pmaps = np.stack([np.stack(scenes[k]["views"]) for k in order])
+        rgbs = np.stack(rgbs_u8)
+        graph = dict(
+            merge=pipeline.compiled_merge_batched(cfg, "auto", dev),
+            e2e=build_batched_e2e(persp, cfg, view_width=256,
+                                  base_model=base, base_w=512)[0])
+        ins = dict(merge=[torch.tensor(emaps, device=dev),
+                          torch.tensor(pmaps, device=dev)],
+                   e2e=[torch.tensor(rgbs, device=dev)])
+        want = {k: graph[k](*ins[k]) for k in graph}
+        np.savez(os.path.join(tmp, "merge.in.npz"), a0=emaps, a1=pmaps)
+        np.savez(os.path.join(tmp, "e2e.in.npz"), a0=rgbs)
+        exports = {k: _exported(procs.pop(k), k, path(k))
+                   for k in ("merge", "e2e")}
+        procs["fresh"] = subprocess.Popen(
+            [sys.executable, "-c", _FRESH_LOAD, ROOT, tmp, "merge",
+             "e2e"], cwd=tmp, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
 
-            # (b), (c) loaded here: kernel nodes, launches, bit-equal
-            arts, loaded = {}, {}
-            # a jacobi node per pyramid level, a group_norm node per norm
-            # call (29 a FastPanoNet forward, one forward a panorama)
-            jac_op, gn_op = serve.KERNEL_OPS
-            gn_calls = SERVE_E2E_BATCH * GN_CALLS
-            expect = dict(
-                merge=({jac_op: 3}, dict(jacobi=per_batch, group_norm=0)),
-                e2e=({jac_op: 3, gn_op: gn_calls},
-                     dict(jacobi=per_batch, group_norm=gn_calls)))
-            for k in ("merge", "e2e"):
-                t0 = time.perf_counter()
-                arts[k] = serve.load(path(k))
-                load_s = time.perf_counter() - t0
-                print(f"serve {k}: loaded in {load_s!r} s")
-                loaded[k] = dict(load_s=load_s, **exports[k], **_hold_loaded(
-                    k, arts[k], ins[k], want[k], *expect[k]))
-
-            # (e) the daemon: a burst of JPEG panoramas at the e2e artifact,
-            # a few .npz merges at the merge artifact
-            panos = [make_rgb(SEED + 10 + i, 2048) for i in range(4)]
-            bodies = [jpeg.encode(p, quality=95) for p in panos]
+        # (b), (c) loaded here: kernel nodes, launches, bit-equal
+        arts, loaded = {}, {}
+        # a jacobi node per pyramid level, a group_norm node per norm
+        # call (29 a FastPanoNet forward, one forward a panorama)
+        jac_op, gn_op = serve.KERNEL_OPS
+        gn_calls = SERVE_E2E_BATCH * GN_CALLS
+        expect = dict(
+            merge=({jac_op: 3}, dict(jacobi=per_batch, group_norm=0)),
+            e2e=({jac_op: 3, gn_op: gn_calls},
+                 dict(jacobi=per_batch, group_norm=gn_calls)))
+        for k in ("merge", "e2e"):
             t0 = time.perf_counter()
-            decoded = [pdaemon.decode_image_rgb(b) for b in bodies]
-            decode_ms = (time.perf_counter() - t0) * 1e3 / len(bodies)
-            direct = np.concatenate([arts["e2e"](np.stack(decoded[i:i + 2]))[
-                0].cpu().numpy() for i in range(0, len(decoded), 2)])
+            arts[k] = serve.load(path(k))
+            load_s = time.perf_counter() - t0
+            print(f"serve {k}: loaded in {load_s!r} s")
+            loaded[k] = dict(load_s=load_s, **exports[k], **_hold_loaded(
+                k, arts[k], ins[k], want[k], *expect[k]))
+
+        # (e) the daemon: a burst of JPEG panoramas at the e2e artifact,
+        # a few .npz merges at the merge artifact
+        panos = [make_rgb(SEED + 10 + i, 2048) for i in range(4)]
+        bodies = [jpeg.encode(p, quality=95) for p in panos]
+        t0 = time.perf_counter()
+        decoded = [pdaemon.decode_image_rgb(b) for b in bodies]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(bodies)
+        direct = np.concatenate([arts["e2e"](np.stack(decoded[i:i + 2]))[
+            0].cpu().numpy() for i in range(0, len(decoded), 2)])
+        t0 = time.perf_counter()
+        for d in direct:
+            pdaemon.encode_png16(d)
+        encode_ms = (time.perf_counter() - t0) * 1e3 / len(direct)
+        progressive = bytearray(bodies[0])
+        progressive[progressive.index(b"\xff\xc0") + 1] = 0xC2
+        stats, wall = _serve_daemon(
+            arts["e2e"], "e2e", bodies, "image/jpeg", direct,
+            SERVE_CLIENTS, SERVE_REQUESTS, refusals=[
+                ("/infer", bytes(progressive), "image/jpeg", 400,
+                 "progressive JPEG is not supported"),
+                ("/infer", jpeg.encode(panos[0][:512]), "image/jpeg",
+                 400, "artifact expects"),
+                ("/infer", b"x" * 64, "application/npz", 400, ""),
+                ("/nope", None, "text/plain", 404, "no route")])
+        n_req = SERVE_CLIENTS * SERVE_REQUESTS
+        daemon = dict(
+            requests=n_req, wall_s=wall, panos_per_s=n_req / wall,
+            p50_ms=stats.get("latency_ms_p50"),
+            p99_ms=stats.get("latency_ms_p99"),
+            mean_fill=stats["mean_batch_fill"],
+            batches=stats["batches"], decode_ms=decode_ms,
+            encode_ms=encode_ms, jpeg_bytes=[len(b) for b in bodies])
+        print(f"serve daemon e2e: {n_req} JPEG requests from "
+              f"{SERVE_CLIENTS} clients in {wall!r} s "
+              f"({daemon['panos_per_s']!r} panoramas/s), every PNG "
+              f"bit-equal to the direct call; latency p50 "
+              f"{daemon['p50_ms']!r} ms, p99 {daemon['p99_ms']!r} ms; "
+              f"mean batch fill {daemon['mean_fill']!r} over "
+              f"{daemon['batches']} batches (the warm-up's batch "
+              f"included, its latency not); "
+              f"host decode {decode_ms!r} ms, PNG16 encode "
+              f"{encode_ms!r} ms a panorama; stats {stats}")
+        npz = []
+        for k in (0, 1):
+            buf = stdio.BytesIO()
+            np.savez(buf, in0=emaps[k], in1=pmaps[k])
+            npz.append(buf.getvalue())
+        bad = stdio.BytesIO()
+        np.savez(bad, in0=emaps[0][:256], in1=pmaps[0])
+        m_stats, m_wall = _serve_daemon(
+            arts["merge"], "merge", npz, "application/npz",
+            [[t[k].cpu().numpy() for t in want["merge"]] for k in (0, 1)],
+            3, 1, refusals=[
+                ("/infer", bad.getvalue(), "application/npz", 400,
+                 "expected shape"),
+                ("/infer", bodies[0], "image/jpeg", 400, "npz")])
+        daemon["merge_npz"] = dict(requests=3, wall_s=m_wall,
+                                   p50_ms=m_stats.get("latency_ms_p50"),
+                                   mean_fill=m_stats["mean_batch_fill"])
+        print(f"serve daemon merge: 3 .npz requests in {m_wall!r} s, "
+              f"each answer bit-equal to the direct call; stats "
+              f"{m_stats}")
+
+        # (f) every other family, batch 1, against its in-process graph
+        families = {}
+        for name, (ckpt, pair, _) in FAMILIES.items():
+            info = _exported(procs.pop(name), name, path(name))
+            net, _ = load_model_checkpoint(ckpt)
+            p_net, b_net = (net, base) if pair == "fastpano" \
+                else (persp, net)
+            norms = sum(isinstance(m, pnorm.GroupNorm)
+                        for n in (p_net, b_net) for m in n.modules())
+            fam_graph = build_batched_e2e(p_net, cfg, view_width=256,
+                                          base_model=b_net, base_w=512)[0]
+            x = ins["e2e"][0][:1]
             t0 = time.perf_counter()
-            for d in direct:
-                pdaemon.encode_png16(d)
-            encode_ms = (time.perf_counter() - t0) * 1e3 / len(direct)
-            progressive = bytearray(bodies[0])
-            progressive[progressive.index(b"\xff\xc0") + 1] = 0xC2
-            stats, wall = _serve_daemon(
-                arts["e2e"], "e2e", bodies, "image/jpeg", direct,
-                SERVE_CLIENTS, SERVE_REQUESTS, refusals=[
-                    ("/infer", bytes(progressive), "image/jpeg", 400,
-                     "progressive JPEG is not supported"),
-                    ("/infer", jpeg.encode(panos[0][:512]), "image/jpeg",
-                     400, "artifact expects"),
-                    ("/infer", b"x" * 64, "application/npz", 400, ""),
-                    ("/nope", None, "text/plain", 404, "no route")])
-            n_req = SERVE_CLIENTS * SERVE_REQUESTS
-            daemon = dict(
-                requests=n_req, wall_s=wall, panos_per_s=n_req / wall,
-                p50_ms=stats.get("latency_ms_p50"),
-                p99_ms=stats.get("latency_ms_p99"),
-                mean_fill=stats["mean_batch_fill"],
-                batches=stats["batches"], decode_ms=decode_ms,
-                encode_ms=encode_ms, jpeg_bytes=[len(b) for b in bodies])
-            print(f"serve daemon e2e: {n_req} JPEG requests from "
-                  f"{SERVE_CLIENTS} clients in {wall!r} s "
-                  f"({daemon['panos_per_s']!r} panoramas/s), every PNG "
-                  f"bit-equal to the direct call; latency p50 "
-                  f"{daemon['p50_ms']!r} ms, p99 {daemon['p99_ms']!r} ms; "
-                  f"mean batch fill {daemon['mean_fill']!r} over "
-                  f"{daemon['batches']} batches (the warm-up's batch "
-                  f"included, its latency not); "
-                  f"host decode {decode_ms!r} ms, PNG16 encode "
-                  f"{encode_ms!r} ms a panorama; stats {stats}")
-            npz = []
-            for k in (0, 1):
-                buf = stdio.BytesIO()
-                np.savez(buf, in0=emaps[k], in1=pmaps[k])
-                npz.append(buf.getvalue())
-            bad = stdio.BytesIO()
-            np.savez(bad, in0=emaps[0][:256], in1=pmaps[0])
-            m_stats, m_wall = _serve_daemon(
-                arts["merge"], "merge", npz, "application/npz",
-                [[t[k].cpu().numpy() for t in want["merge"]] for k in (0, 1)],
-                3, 1, refusals=[
-                    ("/infer", bad.getvalue(), "application/npz", 400,
-                     "expected shape"),
-                    ("/infer", bodies[0], "image/jpeg", 400, "npz")])
-            daemon["merge_npz"] = dict(requests=3, wall_s=m_wall,
-                                       p50_ms=m_stats.get("latency_ms_p50"),
-                                       mean_fill=m_stats["mean_batch_fill"])
-            print(f"serve daemon merge: 3 .npz requests in {m_wall!r} s, "
-                  f"each answer bit-equal to the direct call; stats "
-                  f"{m_stats}")
+            art = serve.load(path(name))
+            info["load_s"] = time.perf_counter() - t0
+            info.update(_hold_loaded(
+                f"families {name}", art, [x], fam_graph(x),
+                {jac_op: 3, gn_op: norms},
+                dict(jacobi=per_batch, group_norm=norms)))
+            families[name] = info
+            del net, fam_graph, art
+            torch.cuda.empty_cache()
 
-            # (f) every other family, batch 1, against its in-process graph
-            families = {}
-            for name, (ckpt, pair, _) in FAMILIES.items():
-                info = _exported(procs.pop(name), name, path(name))
-                net, _ = load_model_checkpoint(ckpt)
-                p_net, b_net = (net, base) if pair == "fastpano" \
-                    else (persp, net)
-                norms = sum(isinstance(m, pnorm.GroupNorm)
-                            for n in (p_net, b_net) for m in n.modules())
-                fam_graph = build_batched_e2e(p_net, cfg, view_width=256,
-                                              base_model=b_net, base_w=512)[0]
-                x = ins["e2e"][0][:1]
-                t0 = time.perf_counter()
-                art = serve.load(path(name))
-                info["load_s"] = time.perf_counter() - t0
-                info.update(_hold_loaded(
-                    f"families {name}", art, [x], fam_graph(x),
-                    {jac_op: 3, gn_op: norms},
-                    dict(jacobi=per_batch, group_norm=norms)))
-                families[name] = info
-                del net, fam_graph, art
-                torch.cuda.empty_cache()
+        # (c) again in the fresh process
+        fresh = json.loads(_child_output(procs.pop("fresh"),
+                                         "fresh load").splitlines()[-1])
+        for k in ("merge", "e2e"):
+            with np.load(os.path.join(tmp, k + ".fresh.npz")) as z:
+                same = all(np.array_equal(z[f"arr_{j}"], w.cpu().numpy())
+                           for j, w in enumerate(want[k]))
+            print(f"serve {k} in a fresh process (no JAX): loaded in "
+                  f"{fresh[k]['load_s']!r} s, cold first call "
+                  f"{fresh[k]['cold_ms']!r} ms, launches "
+                  f"{fresh[k]['launches']}, outputs bit-equal to the "
+                  f"in-process graph here {same}")
+            if not same or fresh[k]["launches"] != loaded[k]["launches"]:
+                raise AssertionError(f"serve {k}: the fresh process "
+                                     f"differs")
+            loaded[k]["fresh"] = fresh[k]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.communicate()
 
-            # (c) again in the fresh process
-            fresh = json.loads(_child_output(procs.pop("fresh"),
-                                             "fresh load").splitlines()[-1])
-            for k in ("merge", "e2e"):
-                with np.load(os.path.join(tmp, k + ".fresh.npz")) as z:
-                    same = all(np.array_equal(z[f"arr_{j}"], w.cpu().numpy())
-                               for j, w in enumerate(want[k]))
-                print(f"serve {k} in a fresh process (no JAX): loaded in "
-                      f"{fresh[k]['load_s']!r} s, cold first call "
-                      f"{fresh[k]['cold_ms']!r} ms, launches "
-                      f"{fresh[k]['launches']}, outputs bit-equal to the "
-                      f"in-process graph here {same}")
-                if not same or fresh[k]["launches"] != loaded[k]["launches"]:
-                    raise AssertionError(f"serve {k}: the fresh process "
-                                         f"differs")
-                loaded[k]["fresh"] = fresh[k]
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                proc.communicate()
-
-        # (d) the replays in turns against the in-process graphs, with no
-        # child running
-        for k, b in (("merge", SERVE_MERGE_BATCH), ("e2e", SERVE_E2E_BATCH)):
-            runs = dict(artifact=lambda: arts[k](*ins[k]),
-                        graph=lambda: graph[k](*ins[k]))
-            turns = {"artifact": [], "graph": []}
-            for form in ("artifact", "graph", "graph", "artifact"):
-                turns[form].append(_timed(runs[form]))
-            for form, run in runs.items():
-                host = float(np.median(turns[form]))
-                busy, _ = _device_profile(run)
-                loaded[k][form] = dict(
-                    ms_per_pano=host / b, turns=turns[form],
-                    busy_ms_per_pano=busy / b,
-                    idle_share=(1 - busy / host) if busy > 0 else None)
-                print(f"serve A/B {k} b{b} {form}: {host / b!r} ms per "
-                      f"panorama (host clock to synchronize, median of the "
-                      f"turns {turns[form]!r} ms per call), device busy "
-                      f"{busy / b!r} ms per panorama, idle share "
-                      f"{loaded[k][form]['idle_share']!r}")
-        del arts
-        torch.cuda.empty_cache()
+    # (d) the replays in turns against the in-process graphs, with no
+    # child running
+    for k, b in (("merge", SERVE_MERGE_BATCH), ("e2e", SERVE_E2E_BATCH)):
+        runs = dict(artifact=lambda: arts[k](*ins[k]),
+                    graph=lambda: graph[k](*ins[k]))
+        turns = {"artifact": [], "graph": []}
+        for form in ("artifact", "graph", "graph", "artifact"):
+            turns[form].append(_timed(runs[form]))
+        for form, run in runs.items():
+            host = float(np.median(turns[form]))
+            busy, _ = _device_profile(run)
+            loaded[k][form] = dict(
+                ms_per_pano=host / b, turns=turns[form],
+                busy_ms_per_pano=busy / b,
+                idle_share=(1 - busy / host) if busy > 0 else None)
+            print(f"serve A/B {k} b{b} {form}: {host / b!r} ms per "
+                  f"panorama (host clock to synchronize, median of the "
+                  f"turns {turns[form]!r} ms per call), device busy "
+                  f"{busy / b!r} ms per panorama, idle share "
+                  f"{loaded[k][form]['idle_share']!r}")
+    del arts
+    torch.cuda.empty_cache()
     return dict(loaded, daemon=daemon, families=families)
+
+
+# --- phase train: training on the card ---------------------------------------
+
+TRAIN_BATCH = 16       # the zoo recipe's batch (zoo/README.md, retrain_zoo.sh)
+TRAIN_LR = 3e-4
+TEACHER_CKPT = os.path.join(ZOO, "panoramic_final.params.npz")
+TEACHER_NORMS = 31     # the UniFuse-class teacher's GroupNorms a forward
+TRAIN_TIMED = 8        # steps timed per reading
+TRAIN_FALL_STEPS = 20  # steps on one fixed batch whose loss must fall
+# the recipe's schedule (zoo/README.md: 14000 steps for the panoramic
+# families, 18000 for the perspective net; 200 warmup steps)
+TRAIN_STEPS = {"pano": 14000, "perspective": 18000}
+# the card's f32 step against the CPU's on the same weights and batch (a
+# narrow FastPanoNet computing in f32, TF32 off): the loss's relative
+# bar (f32 sums in other orders); the gradient norm's (the tiny groups'
+# fast variance amplifies those orders: the CPU tests measured up to 8e-3
+# on a leaf between two f32 compilers, ~1e-3 on the whole gradient)
+TRAIN_CPU_LOSS_REL = 1e-4
+TRAIN_CPU_GN_REL = 1e-2
+# evaluate on the zoo FastPanoNet (16 v1 scenes, seed 77 000) against the
+# JAX package's numbers on the v5e (zoo/README.md): quality, not speed;
+# beyond 5 % the smoke says so (the reason is written in PERF.md)
+ZOO_FASTPANO_RMSE, ZOO_FASTPANO_DELTA1 = 0.0082, 0.958
+TRAIN_CLI_TIMEOUT = 240
+
+
+def _train_net(arch, dtype=torch.bfloat16, seed=0):
+    """A fresh net of ``arch`` drawn as flax draws it, on the card."""
+    from panodepth_torch.models import layers, weights
+
+    net = weights.build_model(arch, dtype=dtype)
+    layers.init_params(net, torch.Generator().manual_seed(seed))
+    return net.to("cuda").train()
+
+
+def _timed_steps(step, state, batches):
+    """ms per step over ``batches`` (a list: render excluded; an iterator:
+    render included), host clock to a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in batches:
+        state, m = step(state, batch)
+        n += 1
+        if n == TRAIN_TIMED:
+            break
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, m
+
+
+def _train_reading(label, net, kind, teacher=None, size=None):
+    """The readings of one configuration at batch 16: render ms, steps/s
+    and img/s with the render included and excluded, device busy and idle
+    share of a step, peak memory; the GroupNorm launches of a step (the
+    student's and the teacher's); the loss falling on a fixed batch."""
+    from panodepth_torch import synth
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import train as ptrain
+
+    teacher_launches = [0]
+
+    def teacher_fn(rgb):
+        before = kg.LAUNCHES
+        out = teacher(rgb)
+        teacher_launches[0] += kg.LAUNCHES - before
+        return out
+
+    tx = ptrain.make_optimizer(lr=TRAIN_LR, steps=TRAIN_STEPS[kind])
+    state = ptrain.init_state(net, tx)
+    step = ptrain.make_train_step(
+        net, tx, teacher_fn=teacher_fn if teacher is not None else None)
+    gen = synth.synth_batches(TRAIN_BATCH, kind=kind, view_size=size,
+                              pano_width=size, seed=SEED, version="mix")
+    try:
+        for _ in range(2):  # warm-up: cuDNN plans, the allocator
+            state, m = step(state, next(gen))
+        torch.cuda.synchronize()
+        render = []
+        fixed = []
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            fixed.append(next(gen))
+            torch.cuda.synchronize()
+            render.append((time.perf_counter() - t0) * 1e3)
+        render_ms = float(np.median(render))
+        # the steps' own peak: above what the process holds before them
+        # (the earlier phases' nets and caches, this net and its moments)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        excl_ms, m = _timed_steps(step, state, fixed)
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        incl_ms, _ = _timed_steps(step, state, gen)
+    finally:
+        gen.close()
+    batch = fixed[0]
+    kg.LAUNCHES, teacher_launches[0] = 0, 0
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    total, by_teacher = kg.LAUNCHES, teacher_launches[0]
+    student = total - by_teacher
+    busy_ms, events = _device_profile(lambda: step(state, batch))
+    idle = 1 - busy_ms / excl_ms if busy_ms > 0 else None
+    # the loss on one fixed batch over 20 steps (in the recipe's warmup):
+    # the mean of the last five below the mean of the first five
+    losses = []
+    for _ in range(TRAIN_FALL_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    finite = bool(np.isfinite(losses).all())
+    print(f"train {label}: batch {TRAIN_BATCH}, render {render_ms!r} ms a "
+          f"batch; step {excl_ms!r} ms render excluded "
+          f"({1e3 / excl_ms!r} steps/s, {TRAIN_BATCH * 1e3 / excl_ms!r} "
+          f"img/s), {incl_ms!r} ms render included ({1e3 / incl_ms!r} "
+          f"steps/s, {TRAIN_BATCH * 1e3 / incl_ms!r} img/s); device busy "
+          f"{busy_ms!r} ms a step (idle share {idle!r}); peak memory "
+          f"{peak_gb!r} GiB above the {held / 2 ** 30!r} GiB held before "
+          f"the steps; groupnorm launches a step: student {student}, "
+          f"teacher {by_teacher}; loss on a fixed batch {losses[0]!r} -> "
+          f"{losses[-1]!r} over {TRAIN_FALL_STEPS} steps; top device time "
+          f"(ms, calls):")
+    for ms, count, key in events[:6]:
+        print(f"  {ms:9.4f} ms  {count:6d}  {key[:90]}")
+    if not finite or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"train {label}: the loss did not fall: "
+                             f"{losses}")
+    if student != 0:
+        raise AssertionError(f"train {label}: the student's norms launched "
+                             f"{student} groupnorm kernels")
+    if teacher is not None and by_teacher != \
+            TEACHER_NORMS * kg.launches_per_call():
+        raise AssertionError(f"train {label}: the teacher launched "
+                             f"{by_teacher} groupnorm kernels, expected "
+                             f"{TEACHER_NORMS}")
+    return dict(render_ms=render_ms, step_ms=excl_ms, step_ms_render=incl_ms,
+                steps_per_s=1e3 / excl_ms, steps_per_s_render=1e3 / incl_ms,
+                img_per_s=TRAIN_BATCH * 1e3 / excl_ms,
+                img_per_s_render=TRAIN_BATCH * 1e3 / incl_ms,
+                busy_ms=busy_ms, idle_share=idle, peak_gib=peak_gb,
+                held_gib=held / 2 ** 30,
+                launches_student=student, launches_teacher=by_teacher,
+                loss_first=losses[0], loss_last=losses[-1])
+
+
+def _train_families():
+    """The other families and the GN perspective net, full width, batch
+    16: two steps each (the second timed), finite losses."""
+    from panodepth_torch import synth
+    from panodepth_torch.models import train as ptrain
+
+    out = {}
+    for name, arch in (
+            ("panoramic", dict(model="panoramic")),
+            ("hohonet", dict(model="hohonet", pano_width=512)),
+            ("bifuse", dict(model="bifuse")),
+            ("slicenet", dict(model="slicenet", pano_width=512)),
+            ("gn_perspective", dict(model="perspective", variant="gn"))):
+        net = _train_net(arch)
+        kind = "perspective" if arch["model"] == "perspective" else "pano"
+        gen = synth.synth_batches(TRAIN_BATCH, kind=kind, view_size=256,
+                                  pano_width=512, seed=SEED + 1, version="mix")
+        batches = [next(gen) for _ in range(2)]
+        gen.close()
+        tx = ptrain.make_optimizer(lr=TRAIN_LR)
+        state = ptrain.init_state(net, tx)
+        step = ptrain.make_train_step(net, tx)
+        state, m0 = step(state, batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m1 = step(state, batches[1])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        losses = (float(m0["loss"]), float(m1["loss"]))
+        print(f"train {name}: batch {TRAIN_BATCH}, losses {losses!r}, second "
+              f"step {ms!r} ms ({1e3 / ms!r} steps/s)")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train {name}: loss not finite {losses}")
+        out[name] = dict(steps_per_s=1e3 / ms, step_ms=ms, losses=losses)
+        del net, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _train_card_vs_cpu():
+    """One f32 step of a narrow FastPanoNet on the card and on the CPU from
+    the same weights and batch: the loss and the gradient norm."""
+    from panodepth_torch import synth
+    from panodepth_torch.models import layers, train as ptrain, weights
+
+    arch = dict(model="fastpano", width_scale=0.25)
+    gen = synth.synth_batches(4, kind="pano", pano_width=256, seed=SEED,
+                              version="mix")
+    batch = next(gen)
+    gen.close()
+    got = {}
+    for dev in ("cuda", "cpu"):
+        net = weights.build_model(arch, dtype=torch.float32)
+        layers.init_params(net, torch.Generator().manual_seed(3))
+        net = net.to(dev)
+        tx = ptrain.make_optimizer(lr=TRAIN_LR)
+        state = ptrain.init_state(net, tx)
+        step = ptrain.make_train_step(net, tx)
+        state, m = step(state, tuple(t.to(dev) for t in batch))
+        got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    (lc, gc), (lp, gp) = got["cuda"], got["cpu"]
+    loss_rel, gn_rel = abs(lc - lp) / abs(lp), abs(gc - gp) / abs(gp)
+    print(f"train card vs cpu (FastPanoNet x0.25, f32, 4x128x256): loss "
+          f"{lc!r} / {lp!r} (rel {loss_rel!r}, bar {TRAIN_CPU_LOSS_REL}), "
+          f"grad norm {gc!r} / {gp!r} (rel {gn_rel!r}, bar "
+          f"{TRAIN_CPU_GN_REL})")
+    if loss_rel > TRAIN_CPU_LOSS_REL or gn_rel > TRAIN_CPU_GN_REL:
+        raise AssertionError("train: the card's step disagrees with the "
+                             "CPU's")
+    return dict(loss=(lc, lp), grad_norm=(gc, gp), loss_rel=loss_rel,
+                grad_norm_rel=gn_rel)
+
+
+def _train_cli_start(tmp):
+    """``python -m panodepth_torch.train_cli fastpano`` with the zoo recipe
+    and its teacher for 3 steps, in a child process."""
+    cmd = [sys.executable, "-m", "panodepth_torch.train_cli", "fastpano",
+           "x", "x", tmp, "--synth", "--synth-version", "mix",
+           "--batch-size", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+           "--pano-width", "512", "--steps", "3", "--log-every", "1",
+           "--distill-from", TEACHER_CKPT, "--distill-weight", "0.5"]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONPATH=ROOT))
+
+
+def _train_cli_check(proc, tmp, persp, rgbs_u8):
+    """The child's exports: the sidecar, ``fastpano_final`` and its npz,
+    which ``load_model_checkpoint`` reads; the e2e graph (both kernels)
+    on those weights beside the zoo NF net."""
+    from panodepth_torch.e2e import load_model_checkpoint
+
+    out = _child_output(proc, "train_cli", TRAIN_CLI_TIMEOUT)
+    print("train_cli: " + " | ".join(
+        line for line in out.splitlines() if "[train]" in line)[-600:])
+    for name in ("fastpano.config.json", "fastpano_final",
+                 "fastpano_final.params.npz"):
+        if not os.path.exists(os.path.join(tmp, name)):
+            raise AssertionError(f"train_cli wrote no {name}")
+    base, arch = load_model_checkpoint(
+        os.path.join(tmp, "fastpano_final.params.npz"))
+    dev = torch.device("cuda")
+    rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
+    out = _family_e2e("trained_fastpano", persp, base, rgbs,
+                      replay_count=False)
+    # for the record: the profiler's count of one eager forward's launches
+    feed = _family_input("fastpano", rgbs[:1])
+    with torch.no_grad():
+        _, events = _device_profile(lambda: base(feed))
+    seen = sum(n for _, n, key in events if "gn_cluster" in key)
+    print(f"train_cli weights: one eager forward under the profiler, "
+          f"{seen} groupnorm launches of {GN_CALLS}")
+    return dict(out, eager_profiled_launches=seen)
+
+
+def _train_evaluate():
+    """``evaluate`` on the zoo FastPanoNet, 16 v1 scenes at seed 77 000,
+    through the kernel (launches counted) and through the plain route."""
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import evaluate as peval
+
+    kg.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = peval.evaluate(BASE_CKPT, count=16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = kg.LAUNCHES
+    plain = peval.evaluate(BASE_CKPT, count=16, groupnorm="torch")
+    diff = {k: abs(got[k] - plain[k]) for k in ("rmse", "mae", "delta1")}
+    off = got["rmse"] / ZOO_FASTPANO_RMSE - 1
+    print(f"train evaluate zoo fastpano (16 v1 scenes, seed 77000): rmse "
+          f"{got['rmse']!r} (zoo/README.md {ZOO_FASTPANO_RMSE}, "
+          f"{100 * off:+.1f} %), delta1 {got['delta1']!r} "
+          f"({ZOO_FASTPANO_DELTA1}), mae {got['mae']!r}, constant floor "
+          f"{got['rmse_const']!r}; {launches} groupnorm launches, "
+          f"{secs!r} s; kernel vs plain route |diff| {diff!r}")
+    if launches != 4 * GN_CALLS * kg.launches_per_call():
+        raise AssertionError(f"evaluate: {launches} groupnorm launches, "
+                             f"expected {4 * GN_CALLS} (4 batches)")
+    if max(diff.values()) > 1e-6 or not np.isfinite(got["rmse"]):
+        raise AssertionError(f"evaluate: kernel route vs plain route {diff}")
+    if abs(off) > 0.05:
+        print(f"train evaluate: rmse {100 * off:+.1f} % off the zoo's "
+              f"number (PERF.md says why)")
+    return dict(got, launches=launches, seconds=secs,
+                route_diff=diff, rmse_off=off)
+
+
+def phase_train(persp, rgbs_u8):
+    """Training at full width on the card: FastPanoNet with the zoo recipe
+    and its distillation teacher, the NF perspective net, two steps of each
+    other family, the card's step against the CPU's, ``train_cli`` in a
+    child process with the e2e graph on its weights, and ``evaluate`` on
+    the zoo's FastPanoNet."""
+    from panodepth_torch.e2e import load_model_checkpoint
+
+    teacher, _ = load_model_checkpoint(TEACHER_CKPT)
+    fast = _train_reading("fastpano + teacher", _train_net(
+        dict(model="fastpano")), "pano", teacher=teacher, size=512)
+    del teacher
+    torch.cuda.empty_cache()
+    nf = _train_reading("perspective nf", _train_net(
+        dict(model="perspective", variant="nf")), "perspective", size=256)
+    torch.cuda.empty_cache()
+    others = _train_families()
+    # the child trains while this process checks the CPU step and
+    # evaluates (nothing timed there is a speed claim)
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_train_") as tmp:
+        proc = _train_cli_start(tmp)
+        try:
+            card_cpu = _train_card_vs_cpu()
+            ev = _train_evaluate()
+            cli_e2e = _train_cli_check(proc, tmp, persp, rgbs_u8)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return dict(fastpano=fast, perspective_nf=nf, families=others,
+                card_vs_cpu=card_cpu, evaluate=ev, cli_e2e=cli_e2e)
 
 
 def pio_metrics(scene, emap, out, cfg):
@@ -2533,13 +2906,26 @@ def main():
         stage_a = phase_stage_a(cfg, scenes, rgbs)
     with Phase("batched"):
         batched = phase_batched(cfg, cfg_4096)
-    with Phase("graphs"):
-        graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs, e2e)
-    with Phase("families"):
-        families = phase_families(persp, base, rgbs)
-        phase_families_cli(rgbs)
-    with Phase("serve"):
-        served = phase_serve(cfg, scenes, persp, base, rgbs)
+    serve_tmp = tempfile.mkdtemp(prefix="panodepth_smoke_serve_")
+    early = serve_exports_start(cfg, serve_tmp, SERVE_EARLY)
+    try:
+        with Phase("graphs"):
+            graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs,
+                                  e2e)
+        with Phase("families"):
+            families = phase_families(persp, base, rgbs)
+            phase_families_cli(rgbs)
+        with Phase("serve"):
+            served = phase_serve(cfg, scenes, persp, base, rgbs, serve_tmp,
+                                 early)
+    finally:
+        for proc in early.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(serve_tmp, ignore_errors=True)
+    with Phase("train"):
+        trained = phase_train(persp, rgbs)
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
@@ -2573,7 +2959,12 @@ def main():
             serve_merge=served["merge"]["launches"]["group_norm"],
             serve_e2e=served["e2e"]["launches"]["group_norm"],
             **{f"serve_{k}": v["launches"]["group_norm"]
-               for k, v in served["families"].items()}),
+               for k, v in served["families"].items()},
+            train_student=trained["fastpano"]["launches_student"],
+            train_teacher=trained["fastpano"]["launches_teacher"],
+            evaluate=trained["evaluate"]["launches"],
+            e2e_trained_fastpano=trained["cli_e2e"]["launches"][
+                "group_norm"]),
         families={k: dict(v["groupnorm"], e2e_ms_per_pano=v["e2e"][
             "ms_per_pano"], e2e_idle_share=v["e2e"]["idle_share"])
             for k, v in families.items()})]
@@ -2581,7 +2972,7 @@ def main():
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
           f"stage A: {stage_a!r}; graphs: {graphs!r}; serve: {served!r}; "
-          f"card: {smi}")
+          f"train: {trained!r}; card: {smi}")
     print(f"chip_smoke wall time: {time.monotonic() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

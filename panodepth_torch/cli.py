@@ -117,6 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
                             "pair16d", "bf16", "f32"],
                    help="model mode: view-extraction table; auto = f32 "
                         "(the packed tables are TPU-only, not ported)")
+    p.add_argument("--png-level", type=int, default=None, metavar="0-9",
+                   help="deflate level for the 16-bit result PNGs (always "
+                        "lossless); sets PANODEPTH_PNG_LEVEL. Default 1: "
+                        "fastest writes; 6+ for smallest archival files")
     p.add_argument("--p99", default=None, choices=["sort", "topk", "approx"],
                    help="model mode: the perspective net's 99th percentile; "
                         "only the exact sort is ported")
@@ -157,6 +161,10 @@ def main(argv=None) -> int:
     refusal = _refusal(args)
     if refusal:
         raise SystemExit(f"panodepth_torch: {refusal}")
+    if args.png_level is not None:
+        import os
+
+        os.environ["PANODEPTH_PNG_LEVEL"] = str(args.png_level)
     from .config import MergeConfig
 
     cfg = MergeConfig(layout_name=args.layout, out_width=args.out_width)

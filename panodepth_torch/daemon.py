@@ -33,7 +33,8 @@ Images are decoded by the port's own codecs (``io.decode_image``: the JPEG
 codec ``csrc/jpeg.cpp``, the PNG and BMP readers of ``io.py``); an image
 they refuse (a progressive or arithmetic-coded JPEG, CMYK, 16-bit) is a
 400 with the codec's message.  Responses are written by ``io.png_bytes``
-at the deflate level ``PANODEPTH_PNG_LEVEL`` (default 1).
+at ``io.png_level()``, the level the result files get
+(``PANODEPTH_PNG_LEVEL``, default 1).
 
 Run:  ``python -m panodepth_torch.serve daemon ART.pt2 --port 8765``
 """
@@ -42,7 +43,6 @@ from __future__ import annotations
 
 import io as _io
 import json
-import os
 import queue
 import threading
 import time
@@ -228,10 +228,10 @@ def decode_image_rgb(body: bytes) -> np.ndarray:
 
 
 def encode_png16(u16: np.ndarray) -> bytes:
-    """A 16-bit PNG of ``u16`` at the throughput-default deflate level 1
-    (``PANODEPTH_PNG_LEVEL`` overrides it), as ``io.save_png16`` writes."""
-    return pio.png_bytes(np.ascontiguousarray(u16, np.uint16), int(
-        os.environ.get("PANODEPTH_PNG_LEVEL", "1")))
+    """A 16-bit PNG of ``u16`` at ``io.png_level()``, as ``io.save_png16``
+    writes a result file."""
+    return pio.png_bytes(np.ascontiguousarray(u16, np.uint16),
+                         pio.png_level())
 
 
 # request bodies are one image / one item's arrays — cap them so a bogus

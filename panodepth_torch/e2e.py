@@ -105,12 +105,15 @@ def load_model_checkpoint(ckpt_path: str, norm_dtype=None, device="cuda",
     ``norm_dtype`` is the GroupNorm output type (f32 when None, as the JAX
     package runs off the TPU); ``dtype`` the conv compute type (bf16, as
     in JAX).  Every kind of the JAX loader is built (``weights.build_model``);
-    the int8 graph (JAX's ``quantize=True``) is not ported.
+    the int8 graph (JAX's ``quantize=True``) is not ported.  The net is
+    for inference: in eval mode, no parameter requiring grad (a net to
+    train comes from ``weights.build_model``).
     """
     arch = weights.read_arch(ckpt_path)
     model = weights.build_model(arch, dtype=dtype,
                                 norm_dtype=norm_dtype or torch.float32)
     weights.load_params(model, weights.read_params_npz(ckpt_path))
+    model.requires_grad_(False)
     return model.to(resolve_device(device)).eval(), arch
 
 

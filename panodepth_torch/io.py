@@ -183,9 +183,18 @@ def _write_png(filename: str, arr: np.ndarray, level: int) -> None:
         fp.write(data)
 
 
-def save_png16(filename: str, data: np.ndarray, level: int = 1) -> None:
+def png_level() -> int:
+    """The deflate level of the 16-bit result PNGs: ``PANODEPTH_PNG_LEVEL``
+    (the CLI's ``--png-level`` sets it), else 1, the fastest to write."""
+    return int(os.environ.get("PANODEPTH_PNG_LEVEL", "1"))
+
+
+def save_png16(filename: str, data: np.ndarray, level: int = None) -> None:
     """16-bit single-channel PNG (Save16BitPNG, Depth.cpp:27-32);
-    ``level`` is the deflate level, always lossless."""
+    ``level`` is the deflate level (always lossless), :func:`png_level`
+    when None."""
+    if level is None:
+        level = png_level()
     arr = np.ascontiguousarray(data, np.uint16)
     if arr.ndim != 2:
         raise ValueError(f"save_png16 takes a 2-D array, got {arr.shape}")

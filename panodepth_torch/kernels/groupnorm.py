@@ -21,6 +21,12 @@ takes the kernel for a CUDA tensor and the twin for a CPU tensor,
 ``kernel`` always the kernel (which raises on a CPU tensor), ``torch``
 always the twin.  Nothing falls back.
 
+Training: neither the kernel nor the TPU kernel has a backward.
+:func:`group_norm_train` is the differentiable form the JAX package trains
+with, flax's stock computation (f32 sums, so not bit-equal to the twin's
+f64 ones); ``auto`` takes it under grad mode where an input requires grad,
+and ``kernel`` raises there.
+
 ``cuda_group_norm`` reaches the kernel through the PyTorch operator
 ``panodepth_torch::group_norm`` (``torch.library.custom_op``, CUDA only,
 with a fake implementation for tracers), so a program that
@@ -64,6 +70,36 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(out_dtype)
+
+
+def group_norm_train(x, scale, bias, num_groups: int, eps: float = 1e-6,
+                     relu: bool = False, out_dtype=torch.float32):
+    """GroupNorm as flax trains it (``_compute_stats`` with
+    ``force_float32_reductions``, then ``_normalize``): ``x`` in f32, the
+    means of x and x² per (image, group) as f32 sums, ``var = max(E[x²] -
+    E[x]², 0)``, ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``,
+    an optional ReLU, one cast.  Differentiable; it keeps no f64 copy of
+    the activation."""
+    n, c = x.shape[:2]
+    cg = c // num_groups
+    xf = x.to(torch.float32)
+    xg = xf.reshape(n, num_groups, -1)
+    mean = xg.mean(-1)
+    mean2 = (xg * xg).mean(-1)
+    var = torch.clamp_min(mean2 - mean * mean, 0.0)
+    mul = torch.rsqrt(var + eps).repeat_interleave(cg, 1) * scale
+    shape = (n, c) + (1,) * (x.dim() - 2)
+    y = (xf - mean.repeat_interleave(cg, 1).view(shape)) * mul.view(shape) \
+        + bias.view((1, c) + (1,) * (x.dim() - 2))
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+def needs_grad(*tensors) -> bool:
+    """True under grad mode where one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 
 
 _LIB = None
@@ -225,12 +261,10 @@ def cuda_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-6,
     the current stream and does not synchronise.  The kernel has no
     backward: under grad mode a tensor that requires grad is refused.
     """
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (x, scale, bias)):
+    if needs_grad(x, scale, bias):
         raise RuntimeError("cuda_group_norm has no backward: call it under "
                            "torch.no_grad() or inference_mode(), or take the "
-                           "'torch' route to train")
+                           "'auto' route to train (group_norm_train)")
     num_groups = int(num_groups)
     _check(x, scale, bias, num_groups, out_dtype)
     return _group_norm_op(x, scale, bias, num_groups, float(eps), bool(relu),
@@ -281,16 +315,24 @@ def run_plan(x, scale, bias, eps, relu, out_dtype, plan: GroupNormPlan):
     return y
 
 
-def _auto(x, *args, **kwargs):
-    fn = cuda_group_norm if x.device.type == "cuda" else group_norm_plain
-    return fn(x, *args, **kwargs)
+def _auto(x, scale, bias, *args, **kwargs):
+    if needs_grad(x, scale, bias):
+        fn = group_norm_train
+    elif x.device.type == "cuda":
+        fn = cuda_group_norm
+    else:
+        fn = group_norm_plain
+    return fn(x, scale, bias, *args, **kwargs)
 
 
 ROUTES = ("auto", "torch", "kernel")
 
 
 def resolve(route: str):
-    """The GroupNorm function for a route (``auto``, ``torch``, ``kernel``)."""
+    """The GroupNorm function for a route (``auto``, ``torch``, ``kernel``).
+    ``auto``: :func:`group_norm_train` under grad mode where an input
+    requires grad, else the kernel on a CUDA tensor and the twin on a CPU
+    tensor."""
     try:
         return {"auto": _auto, "torch": group_norm_plain,
                 "kernel": cuda_group_norm}[route]

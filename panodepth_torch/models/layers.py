@@ -14,7 +14,17 @@ bias as a separate ``dtype`` operation.  ``padding="SAME"`` is lax's: for
 stride s and kernel k the total pad ``max((ceil(n/s) - 1) * s + k - n, 0)``
 goes ``total // 2`` before and the rest after, so a 3x3 stride-2 conv pads
 (0, 1) and a 7x7 stride-2 one (2, 3); ``padding=k // 2`` would shift the
-phase.  The nets are inference-only: no parameter requires a gradient.
+phase.
+
+Every parameter is trainable, and a fresh layer is drawn as flax draws it
+(:func:`init_params` redraws a whole net from one ``torch.Generator``):
+conv, dense and attention kernels ``lecun_normal`` (a normal truncated at
+two standard deviations, rescaled to variance 1/fan_in, the fan-in
+counting every contracted axis and the receptive field), the GRU's
+recurrent kernels ``orthogonal``, biases 0 (or a constant where the JAX
+net sets one), norm scales 1.  A loaded checkpoint
+(``e2e.load_model_checkpoint``) is an inference net: its parameters
+require no gradient.
 """
 
 from __future__ import annotations
@@ -31,6 +41,33 @@ from .. import graphs
 
 Pads = Union[str, Sequence[Tuple[int, int]]]
 
+# the standard deviation of a unit normal truncated to (-2, 2), by which
+# jax's variance_scaling divides to keep the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def variance_scaling_(t, scale: float, fan_in: int, generator=None):
+    """``jax.nn.initializers.variance_scaling(scale, "fan_in",
+    "truncated_normal")`` into ``t`` in place: a unit normal truncated to
+    (-2, 2) times ``sqrt(scale / fan_in) / 0.8796``, so that the values keep
+    variance ``scale / fan_in`` and none lies beyond two of the untruncated
+    standard deviations.  ``lecun_normal`` is scale 1, ``he_normal`` 2."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return t.mul_(math.sqrt(scale / fan_in) / _TRUNC_STD)
+
+
+def init_params(model: nn.Module, generator=None) -> nn.Module:
+    """Redraw every parameter of ``model`` as flax initialises it, in
+    module order from ``generator`` (the layers' ``init_flax_``).  Returns
+    ``model``.  The draws are not flax's bits (another generator), only its
+    distributions."""
+    for m in model.modules():
+        init = getattr(m, "init_flax_", None)
+        if init is not None:
+            init(generator)
+    return model
+
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     """lax's SAME padding (before, after) of one spatial axis."""
@@ -38,10 +75,27 @@ def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def train_layout(x, kernel):
+    """``x`` made contiguous where a conv will take the kernel's gradient.
+    PyTorch's CPU convolution (2.13, oneDNN) writes out of bounds in the
+    kernel's gradient of a strided 1x1 conv whose input is a
+    channels-last view (the nets' first conv takes the RGB as a permuted
+    NHWC tensor): the gradient comes out wrong, or the heap is corrupted.
+    Inference keeps its layout (and bits)."""
+    if torch.is_grad_enabled() and kernel.requires_grad:
+        return x.contiguous()
+    return x
+
+
 class Derived(nn.Module):
     """A module whose forward uses a tensor derived from its parameters
     (a cast, a standardisation), computed once and kept until a parameter
     is replaced, moved or written in place.
+
+    Under grad mode, where a parameter requires grad, the value is made
+    anew on every call and not kept: the gradient flows back through it to
+    the parameters, and an optimizer step is seen at the next call.  The
+    cache (and the captured graphs' hold on it) is for inference only.
 
     Under a tracer (``torch.export``) the value is made from the real
     parameters outside the trace, so an exported program holds it as a
@@ -51,12 +105,14 @@ class Derived(nn.Module):
     closes over the nets, as ``serve`` does."""
 
     def derived(self, make, *params):
-        if graphs.tracing():
-            if any(fake_tensor.is_fake(p) for p in params):
-                raise RuntimeError(
-                    f"{type(self).__name__}: traced with fake parameters; "
-                    f"keep the module out of the traced module's "
-                    f"submodules")
+        tracing = graphs.tracing()
+        if tracing and any(fake_tensor.is_fake(p) for p in params):
+            raise RuntimeError(
+                f"{type(self).__name__}: traced with fake parameters; keep "
+                f"the module out of the traced module's submodules")
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return make()
+        if tracing:
             with graphs.untraced():
                 return self._derived(make, params)
         return self._derived(make, params)
@@ -76,24 +132,31 @@ class Conv(Derived):
 
     def __init__(self, cin: int, features: int, kernel=(3, 3), strides=(1, 1),
                  padding: Pads = "SAME", use_bias: bool = True,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, bias_init: float = 0.0):
         super().__init__()
         kh, kw = kernel
         self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(features, cin, kh, kw),
-                                   requires_grad=False)
-        nn.init.kaiming_normal_(self.kernel)
-        self.bias = (nn.Parameter(torch.zeros(features), requires_grad=False)
-                     if use_bias else None)
+        self.bias_init = bias_init
+        self.kernel = nn.Parameter(torch.empty(features, cin, kh, kw))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.init_flax_()
+
+    def init_flax_(self, generator=None):
+        """flax's ``lecun_normal`` kernel (fan-in cin * kh * kw) and a
+        constant bias (``bias_init``, 0 by default)."""
+        variance_scaling_(self.kernel, 1.0, self.kernel[0].numel(), generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.fill_(self.bias_init)
 
     def weight(self):
         """The kernel as the conv uses it (cast to ``dtype``)."""
         return self.derived(lambda: self.kernel.to(self.dtype), self.kernel)
 
     def forward(self, x):
-        x = x.to(self.dtype)
+        x = train_layout(x.to(self.dtype), self.kernel)
         kh, kw = self.kernel.shape[2:]
         if self.padding == "SAME":
             (t, b), (l, r) = (same_pads(x.shape[2], kh, self.strides[0]),
@@ -109,17 +172,29 @@ class Conv(Derived):
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense`` over the last axis; ``kernel`` is (out, in)."""
+    """``flax.linen.Dense`` over the last axis; ``kernel`` is (out, in).
+    ``orthogonal`` draws the kernel as ``initializers.orthogonal()`` (the
+    GRU's recurrent kernels) instead of ``lecun_normal``."""
 
     def __init__(self, cin: int, features: int, dtype=torch.bfloat16,
-                 use_bias: bool = True):
+                 use_bias: bool = True, orthogonal: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(features, cin),
-                                   requires_grad=False)
-        nn.init.normal_(self.kernel, std=1.0 / math.sqrt(cin))
-        self.bias = (nn.Parameter(torch.zeros(features), requires_grad=False)
-                     if use_bias else None)
+        self.orthogonal = orthogonal
+        self.kernel = nn.Parameter(torch.empty(features, cin))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.init_flax_()
+
+    def init_flax_(self, generator=None):
+        if self.orthogonal:
+            with torch.no_grad():
+                nn.init.orthogonal_(self.kernel, generator=generator)
+        else:
+            variance_scaling_(self.kernel, 1.0, self.kernel.shape[1],
+                              generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x):
         y = F.linear(x.to(self.dtype), self.kernel.to(self.dtype))
@@ -161,8 +236,13 @@ class LayerNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def init_flax_(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
 
     def forward(self, x):
         xf = x.to(torch.float32)
@@ -185,10 +265,17 @@ class DenseGeneral(Derived):
         super().__init__()
         cin, features = tuple(cin), tuple(features)
         self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(features + cin),
-                                   requires_grad=False)
-        nn.init.normal_(self.kernel, std=1.0 / math.sqrt(math.prod(cin)))
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self.fan_in = math.prod(cin)
+        self.kernel = nn.Parameter(torch.empty(features + cin))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.init_flax_()
+
+    def init_flax_(self, generator=None):
+        """``lecun_normal`` over the flattened (in, out) kernel: the fan-in
+        is the product of the contracted axes."""
+        variance_scaling_(self.kernel, 1.0, self.fan_in, generator)
+        with torch.no_grad():
+            self.bias.zero_()
 
     def forward(self, x):
         """``x`` (..., prod(in)) -> (..., prod(features)) in ``dtype``."""
@@ -232,7 +319,8 @@ class MultiHeadDotProductAttention(nn.Module):
 
 class GRUCell(nn.Module):
     """``flax.linen.GRUCell``: ``ir``/``iz``/``in`` with biases, ``hr``/
-    ``hz`` without, ``hn`` with one; ``n = tanh(in(x) + r * hn(h))``,
+    ``hz`` without, ``hn`` with one (the ``h*`` kernels drawn orthogonal);
+    ``n = tanh(in(x) + r * hn(h))``,
     ``h' = (1 - z) * n + z * h``.  The carry is f32 (flax's
     ``param_dtype``), so ``h'`` is f32 while the gates are ``dtype``."""
 
@@ -243,8 +331,8 @@ class GRUCell(nn.Module):
             self.add_module(name, Dense(cin, features, dtype))
         for name in ("hr", "hz"):
             self.add_module(name, Dense(features, features, dtype,
-                                        use_bias=False))
-        self.hn = Dense(features, features, dtype)
+                                        use_bias=False, orthogonal=True))
+        self.hn = Dense(features, features, dtype, orthogonal=True)
 
     def scan(self, x, reverse: bool = False):
         """``nn.RNN(cell)`` over (B, L, C) from a zero carry; ``reverse``

@@ -11,6 +11,13 @@ PyTorch twin on a CPU tensor, ``kernel`` always the kernel (it raises on a
 CPU tensor), ``torch`` always the twin.  On the card the kernel is the
 default; nothing falls back.  :func:`set_route` sets it on every GroupNorm
 of a net.
+
+Training: the kernel has no backward, as the TPU kernel has none.  Under
+grad mode, where the input, ``scale`` or ``bias`` requires grad, ``auto``
+takes flax's own differentiable computation
+(``kernels.groupnorm.group_norm_train``: f32 sums, the fast variance), the
+one the JAX package trains with (``panodepth/models/norm.py``, whose fused
+path is inference-only); ``kernel`` raises there.
 """
 
 from __future__ import annotations
@@ -34,8 +41,13 @@ class GroupNorm(nn.Module):
         self.fuse_relu = fuse_relu
         self.dtype = dtype  # the output type; the statistics are f32
         self.route = route
-        self.scale = nn.Parameter(torch.ones(channels), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(channels), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def init_flax_(self, generator=None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
 
     def forward(self, x):
         return kgroupnorm.resolve(self.route)(

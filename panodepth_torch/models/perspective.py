@@ -36,8 +36,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bilinear, upsample2_nearest
-from .layers import Conv, Derived, same_pads, softplus
+from .layers import (Conv, Derived, same_pads, softplus, train_layout,
+                     variance_scaling_)
 from .norm import GroupNorm
+
+
+# the perspective nets' head bias at init (panodepth/models/perspective.py
+# bias_init=constant(-1.8)): with softplus(0) the first prediction is ~5x
+# the target's mean, and AdamW then shrinks every layer until softplus
+# underflows and training freezes
+HEAD_BIAS = -1.8
 
 
 def _groups(channels: int, target: int = 32) -> int:
@@ -130,7 +138,8 @@ class PerspectiveDepthNet(nn.Module):
                 norm_dtype=norm_dtype))
         self.Conv_2 = Conv(decoder_width, decoder_width // 2, dtype=dtype)
         self.Conv_3 = Conv(decoder_width // 2, 32, dtype=dtype)
-        self.Conv_4 = Conv(32, 1, (1, 1), dtype=torch.float32)
+        self.Conv_4 = Conv(32, 1, (1, 1), dtype=torch.float32,
+                           bias_init=HEAD_BIAS)
 
     def forward(self, rgb):
         x = rgb.permute(0, 3, 1, 2).to(self.dtype)
@@ -175,11 +184,18 @@ class WSConv(Derived):
         self.strides = tuple(strides)
         self.dtype = dtype
         self.gain_act = gain_act
-        self.kernel = nn.Parameter(torch.empty(features, cin, kh, kw),
-                                   requires_grad=False)
-        nn.init.kaiming_normal_(self.kernel)
-        self.gain = nn.Parameter(torch.ones(features), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self.kernel = nn.Parameter(torch.empty(features, cin, kh, kw))
+        self.gain = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.init_flax_()
+
+    def init_flax_(self, generator=None):
+        """flax's ``he_normal`` kernel (truncated, variance 2/fan_in), gain
+        1, bias 0."""
+        variance_scaling_(self.kernel, 2.0, self.kernel[0].numel(), generator)
+        with torch.no_grad():
+            self.gain.fill_(1.0)
+            self.bias.zero_()
 
     def _standardize(self):
         w = self.kernel.to(torch.float32)
@@ -198,7 +214,7 @@ class WSConv(Derived):
         kh, kw = self.kernel.shape[2:]
         (t, b), (l, r) = (same_pads(x.shape[2], kh, self.strides[0]),
                           same_pads(x.shape[3], kw, self.strides[1]))
-        x = x.to(self.dtype)
+        x = train_layout(x.to(self.dtype), self.kernel)
         if t or b or l or r:
             x = F.pad(x, (l, r, t, b))
         y = F.conv2d(x, self.weight(), stride=self.strides)
@@ -281,7 +297,8 @@ class NFPerspectiveNet(nn.Module):
                 decoder_width, decoder_width, skip, alpha=alpha, dtype=dtype))
         self.WSConv_2 = WSConv(decoder_width, decoder_width // 2, dtype=dtype)
         self.WSConv_3 = WSConv(decoder_width // 2, 32, dtype=dtype)
-        self.Conv_0 = Conv(32, 1, (1, 1), dtype=torch.float32)
+        self.Conv_0 = Conv(32, 1, (1, 1), dtype=torch.float32,
+                           bias_init=HEAD_BIAS)
 
     def forward(self, rgb):
         x = rgb.permute(0, 3, 1, 2).to(self.dtype)

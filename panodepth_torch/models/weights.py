@@ -71,6 +71,26 @@ def to_port_layout(name: str, a: np.ndarray) -> np.ndarray:
     return a
 
 
+def flax_key(name: str) -> str:
+    """The flax path string of a port parameter name, the inverse of
+    :func:`port_name`: ``A.b`` -> ``['params']['A']['b']``."""
+    return "['params']" + "".join(f"['{p}']" for p in name.split("."))
+
+
+def to_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
+    """A port leaf in flax's layout, the inverse of :func:`to_port_layout`:
+    conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out),
+    attention kernels with their output axes last."""
+    if name.endswith("kernel") and a.ndim == 4:
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if name.endswith("kernel") and a.ndim == 3:
+        return np.ascontiguousarray(a.transpose(
+            (1, 2, 0) if name.endswith(".out.kernel") else (2, 0, 1)))
+    if name.endswith("kernel") and a.ndim == 2:
+        return np.ascontiguousarray(a.T)
+    return a
+
+
 def load_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     """Copy the flax leaves ``flat`` (as :func:`read_params_npz` returns
     them) into ``model``'s parameters; raises unless the two match one to

@@ -390,9 +390,12 @@ def test_capture_holds_the_tables_it_reads(path):
         tables = [fastpano._latitude_on_device(8, 16, cpu, torch.float32)]
     else:
         conv = layers.Conv(3, 4)
-        with graphs.holding(held):
-            conv.weight()
-        tables = [conv.weight()]
+        # the cast is kept (and held) for inference; under grad a trainable
+        # conv makes it anew on every call
+        with torch.no_grad():
+            with graphs.holding(held):
+                conv.weight()
+            tables = [conv.weight()]
     assert tables and all(_held(held, t) for t in tables)
     # outside a capture nothing is collected
     n = len(held)

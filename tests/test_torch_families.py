@@ -40,6 +40,14 @@ from torch_port_common import flax_flat
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """The port's nets are trainable; these tests hold their inference
+    forward (as e2e and serve run it) against JAX, so autograd is off."""
+    with torch.no_grad():
+        yield
+
 F32_TOL = 1e-5
 BF16_REL = 2.0 ** -6
 MODES = {"f32": (jnp.float32, torch.float32),

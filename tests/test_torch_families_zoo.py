@@ -37,6 +37,14 @@ from torch_port_common import flax_flat
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """The port's nets are trainable; these tests hold their inference
+    forward (as e2e and serve run it) against JAX, so autograd is off."""
+    with torch.no_grad():
+        yield
+
 ZOO = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "zoo")
 F32_TOL = 1e-5
@@ -112,7 +120,7 @@ def test_zoo_weights_carried_bit_for_bit(name):
     assert len(leaves) == len(params) == len(np.load(path).files)
     for key, leaf in leaves.items():
         port_key = weights.port_name(key)
-        p = params[port_key].numpy()
+        p = params[port_key].detach().numpy()
         if p.ndim == 4:
             p = p.transpose(2, 3, 1, 0)
         elif p.ndim == 3:

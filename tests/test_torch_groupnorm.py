@@ -28,6 +28,14 @@ from panodepth_torch.models import norm as tnorm
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """The port's nets are trainable; these tests hold their inference
+    forward (as e2e and serve run it) against JAX, so autograd is off."""
+    with torch.no_grad():
+        yield
+
 F32_ULPS = 16
 
 

@@ -33,9 +33,11 @@ def test_port_imports_neither_jax_nor_panodepth():
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(m for m in sys.modules
-                     if m in ("jax", "panodepth", "PIL")
-                     or m.startswith(("jax.", "panodepth.", "PIL.")))
-        # the e2e and serving slices' modules are among those imported
+                     if m in ("jax", "panodepth", "PIL", "flax", "optax")
+                     or m.startswith(("jax.", "panodepth.", "PIL.", "flax.",
+                                      "optax.")))
+        # the e2e, serving and training slices' modules are among those
+        # imported
         need = {"panodepth_torch.e2e", "panodepth_torch.kernels.groupnorm",
                 "panodepth_torch.serve", "panodepth_torch.daemon",
                 "panodepth_torch.models.norm",
@@ -44,11 +46,14 @@ def test_port_imports_neither_jax_nor_panodepth():
                 "panodepth_torch.models.perspective",
                 "panodepth_torch.models.fastpano",
                 "panodepth_torch.ops.projection",
-                "panodepth_torch.ops.resize"}
+                "panodepth_torch.ops.resize",
+                "panodepth_torch.models.train",
+                "panodepth_torch.models.evaluate",
+                "panodepth_torch.synth", "panodepth_torch.train_cli"}
         print(len(names), sorted(need - set(names)), bad)
     """)
     n, rest = out.split(" ", 1)
-    assert int(n) >= 22, out  # every module of the package was imported
+    assert int(n) >= 26, out  # every module of the package was imported
     assert rest.strip() == "[] []", out
 
 

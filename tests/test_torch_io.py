@@ -273,3 +273,40 @@ def test_writers_read_back_in_both_packages(tmp_path):
                 str(tmp_path / f"t{ext}")), b)
     with pytest.raises(ValueError, match="save_jpg writes"):
         tio.save_jpg(str(tmp_path / "x.tif"), m)
+
+
+def test_save_png16_level_env(tmp_path, monkeypatch):
+    """PANODEPTH_PNG_LEVEL / level= set the (lossless) deflate level of
+    save_png16, as in the JAX package (tests/test_cli_tools.py)."""
+    monkeypatch.delenv("PANODEPTH_PNG_LEVEL", raising=False)
+    y, x = np.mgrid[0:64, 0:128]
+    img = (1000 + 40 * np.sin(x / 9.0) + 8 * y).astype(np.uint16)
+    f1, f6 = str(tmp_path / "l1.png"), str(tmp_path / "l6.png")
+    tio.save_png16(f1, img, level=1)
+    tio.save_png16(f6, img, level=6)
+    assert os.path.getsize(f6) < os.path.getsize(f1)
+    for f in (f1, f6):
+        np.testing.assert_array_equal(
+            (tio.load_image01(f) * 65535 + 0.5).astype(np.uint16), img)
+    fdef = str(tmp_path / "default.png")
+    tio.save_png16(fdef, img)
+    assert os.path.getsize(fdef) == os.path.getsize(f1)
+    monkeypatch.setenv("PANODEPTH_PNG_LEVEL", "6")
+    fenv = str(tmp_path / "env.png")
+    tio.save_png16(fenv, img)
+    assert os.path.getsize(fenv) == os.path.getsize(f6)
+
+
+def test_cli_png_level_sets_the_variable(tmp_path, monkeypatch):
+    from panodepth_torch import cli
+
+    # set through monkeypatch first, so that the CLI's own setting is
+    # undone after the test
+    monkeypatch.setenv("PANODEPTH_PNG_LEVEL", "1")
+    for d in ("rgb", "gt", "base"):
+        (tmp_path / d).mkdir()
+    assert cli.main(["0", str(tmp_path / "rgb"), str(tmp_path / "gt"),
+                     str(tmp_path / "base"), str(tmp_path / "res"),
+                     "--device", "cpu", "--no-extract",
+                     "--png-level", "6"]) == 0
+    assert os.environ["PANODEPTH_PNG_LEVEL"] == "6"

@@ -365,12 +365,18 @@ def test_cuda_group_norm_constant_group_and_module_route(cuda_device):
     assert float((got - want).abs().max()) <= 2.0 ** -10
     m = tnorm.GroupNorm(8, 4, fuse_relu=True).to(cuda_device)
     kgn.LAUNCHES = 0
-    y = m(x.to(torch.bfloat16))  # auto: the kernel on a CUDA tensor
+    with torch.no_grad():
+        y = m(x.to(torch.bfloat16))  # auto: the kernel on a CUDA tensor
     assert kgn.LAUNCHES == 1 and float(y.min()) >= 0.0
-    # the kernel has no backward: a tensor that requires grad is refused
-    # on the auto route too, never sent to the twin
+    # the kernel has no backward: under grad (the trainable scale and bias
+    # require it) auto takes flax's differentiable form, launching nothing,
+    # and the kernel route refuses
+    y = m(x.requires_grad_(True))
+    y.sum().backward()
+    assert kgn.LAUNCHES == 1 and x.grad is not None
+    tnorm.set_route(m, "kernel")
     with pytest.raises(RuntimeError, match="no backward"):
-        m(x.requires_grad_(True))
+        m(x)
     assert kgn.LAUNCHES == 1
 
 

@@ -41,6 +41,14 @@ from torch_port_common import flax_flat
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """The port's nets are trainable; these tests hold their inference
+    forward (as e2e and serve run it) against JAX, so autograd is off."""
+    with torch.no_grad():
+        yield
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PERSP = os.path.join(ROOT, "zoo", "perspective_final.params.npz")
 BASE = os.path.join(ROOT, "zoo", "fastpano_final.params.npz")
@@ -216,7 +224,7 @@ def test_zoo_weights_carried_bit_for_bit(path):
     params = dict(tm.named_parameters())
     assert len(leaves) == len(params) == len(np.load(path).files)
     for key, leaf in leaves.items():
-        p = params[weights.port_name(key)].numpy()
+        p = params[weights.port_name(key)].detach().numpy()
         if p.ndim == 4:
             p = p.transpose(2, 3, 1, 0)
         elif p.ndim == 2:
@@ -226,7 +234,7 @@ def test_zoo_weights_carried_bit_for_bit(path):
     np.testing.assert_array_equal(
         np.asarray(jtrain.load_params_npz(path, jp)["params"]["Conv_0"]
                    ["kernel"]).reshape(-1),
-        params["Conv_0.kernel"].numpy().reshape(-1))
+        params["Conv_0.kernel"].detach().numpy().reshape(-1))
 
 
 def test_loader_refuses_leftovers_and_holes():

@@ -92,8 +92,9 @@ Phases, each printing its elapsed seconds:
              the BiFuse baseline and the GN perspective net, with resume,
              and ``--base-width 256`` refused for HoHoNet.
 14. serve  — the serving path: ``python -m panodepth_torch.serve``
-             exports, each in a child process of its own and all at once
-             (SliceNet's, the longest, started with phase graphs),
+             exports, each in a child process of its own (SliceNet's, the
+             longest, started with phase graphs, the others all at once
+             with phase families),
              the 2048 merge (batch 4, u16 512x1024 baselines, 15 988x1024
              views), the e2e graph with FastPanoNet + NF (batch 2, u8
              1024x2048 RGB, views 256) and the e2e graph of each other
@@ -111,7 +112,10 @@ Phases, each printing its elapsed seconds:
              artifact (.npz); the replays timed in turns against the
              in-process graphs (artifact, graph, graph, artifact) with
              device busy and idle share.  The artifacts live in a temporary
-             directory, deleted at the end.
+             directory, deleted at the end.  Phase train's two ``train_cli``
+             children run while this phase waits on the exports and loads
+             the artifacts, and end before the daemon's burst; they and the
+             exports run at background priority.
 15. train  — training at full width, batch 16 (the zoo recipe, lr 3e-4,
              mix scenes rendered on the card): FastPanoNet with the zoo's
              UniFuse-class distillation teacher and the NF perspective net
@@ -122,13 +126,26 @@ Phases, each printing its elapsed seconds:
              norm call, 31) and the loss falling over 20 steps on a fixed
              batch (the recipe's warmup schedule); two steps of the UniFuse-class, HoHoNet, BiFuse,
              SliceNet and GN perspective nets (steps/s); one f32 step of a
-             narrow FastPanoNet on the card against the CPU's; then
-             ``train_cli`` in a child process (3 steps, the recipe and its
-             teacher) while ``evaluate`` scores the zoo FastPanoNet on 16
-             v1 scenes (RMSE and delta1 beside zoo/README.md's, kernel
-             route against plain route, launches counted); the child's
-             ``fastpano_final.params.npz`` loaded and run in the e2e graph
-             beside the zoo NF net (``_family_e2e``'s checks).
+             narrow FastPanoNet on the card against the CPU's; ``evaluate``
+             on the zoo FastPanoNet on 16 v1 scenes (RMSE and delta1 beside
+             zoo/README.md's, kernel route against plain route, launches
+             counted).  Training on files: a dataset of 40 mix scenes at
+             Matterport3D's 1024x512 written by ``synth.write_dataset``
+             (seconds); a batch of 16 pairs decoded on 1 thread and on the
+             pool (ms, bit-equal); both nets above on the files with
+             --augment --corrupt, timed in turns against --synth --corrupt
+             (files, synth, synth, files), with the corruption's device ms,
+             busy and idle share of a file step and its GroupNorm launches;
+             the corruption on the card against the CPU on the same draws;
+             ``evaluate --corrupt`` (RMSE beside the clean one, launches);
+             the merge CLI with --debug-nans on phase cli's first scene
+             (eager: 26 Jacobi launches, output bit-equal to phase cli's);
+             then the two ``train_cli`` children (run during phase serve):
+             3 steps on --synth, and 4 on the files with --eval-every 2
+             --trace (the holdout lines, finite val_loss, a trace holding
+             the card's kernels), each child's ``fastpano_final.params.npz``
+             run in the e2e graph beside the zoo NF net (``_family_e2e``'s
+             checks).
 
 Launch counts: a graph's kernels are counted by their wrappers at the two
 warm-up calls and the capture (``graph_launches``); a replay launches them
@@ -2142,12 +2159,23 @@ print(json.dumps(report))
 """
 
 
+# the niceness of the children that run beside the checks (the exports,
+# the train CLI runs): the host's cores go to this process first, whose
+# profiler must see every launch of the replays it checks
+BACKGROUND_NICE = 10
+
+
+def _background():
+    os.nice(BACKGROUND_NICE)
+
+
 def _serve_cli(*args):
     """``python -m panodepth_torch.serve ARGS`` in a child process started
-    from the repository root."""
+    from the repository root, at background priority."""
     return subprocess.Popen([sys.executable, "-m", "panodepth_torch.serve",
                              *args], cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=_background)
 
 
 def _child_output(proc, label, timeout=600):
@@ -2310,10 +2338,13 @@ def _serve_daemon(art, label, bodies, ctype, want, clients, requests,
     return stats, wall
 
 
-# the export that takes longest (SliceNet's GRU, 89-120 s) starts this
-# early, at phase graphs, in a child process (one core of the host's);
-# the others start with phase serve
+# the export that takes longest (SliceNet's GRU, 89-120 s) starts early,
+# at phase graphs, in a child process (one core of the host's); the others
+# (30-48 s each when six run at once) start with phase families, so that
+# phase serve finds them written
 SERVE_EARLY = ("slicenet",)
+SERVE_WITH_FAMILIES = ("merge", "e2e") + tuple(
+    name for name in FAMILIES if name not in SERVE_EARLY)
 
 
 def serve_exports_start(cfg, tmp, names):
@@ -2342,15 +2373,18 @@ def serve_exports_start(cfg, tmp, names):
     return procs
 
 
-def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs):
+def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
     """The serving path: the 2048 merge (batch 4) and e2e (FastPanoNet + NF,
     batch 2) exported by ``python -m panodepth_torch.serve`` and every other
     family's e2e graph at batch 1, each export in a child process of its
-    own into ``tmp`` (``procs``: those started earlier, SERVE_EARLY; the
-    rest start here, all at once); each artifact loaded here and held
+    own into ``tmp`` (``procs``: those started earlier, SERVE_EARLY and
+    SERVE_WITH_FAMILIES; any other starts here); each artifact loaded here
+    and held
     bit-equal to its in-process graph with its kernel nodes and launches,
     then in a fresh process; the daemon over both; the replays timed in
-    turns against the in-process graphs."""
+    turns against the in-process graphs.  ``trainers`` (phase train's
+    ``train_cli`` children) run while this phase waits on the exports and
+    loads the artifacts, and end before the daemon's burst."""
     from panodepth_torch import daemon as pdaemon
     from panodepth_torch import jpeg, pipeline, serve
     from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
@@ -2360,6 +2394,7 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs):
     per_batch = sum(jacobi_launches(cfg))
     path = lambda name: os.path.join(tmp, name + ".pt2")
     try:
+        trainers.start()
         # (a) every export not started yet, at once
         procs.update(serve_exports_start(cfg, tmp, [
             name for name in ("merge", "e2e", *FAMILIES)
@@ -2405,7 +2440,8 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs):
                 k, arts[k], ins[k], want[k], *expect[k]))
 
         # (e) the daemon: a burst of JPEG panoramas at the e2e artifact,
-        # a few .npz merges at the merge artifact
+        # a few .npz merges at the merge artifact; no train child running
+        trainers.wait()
         panos = [make_rgb(SEED + 10 + i, 2048) for i in range(4)]
         bodies = [jpeg.encode(p, quality=95) for p in panos]
         t0 = time.perf_counter()
@@ -2560,6 +2596,15 @@ TRAIN_CPU_GN_REL = 1e-2
 # beyond 5 % the smoke says so (the reason is written in PERF.md)
 ZOO_FASTPANO_RMSE, ZOO_FASTPANO_DELTA1 = 0.0082, 0.958
 TRAIN_CLI_TIMEOUT = 240
+# the file dataset: procedural mix scenes at Matterport3D's 1024x512, written
+# by the port's writer (quality-95 JPEG RGB, 16-bit PNG gt); every 10th
+# pair held out by the train CLI's --eval-every
+TRAIN_FILES = 40
+TRAIN_FILES_WIDTH = 1024
+TRAIN_FILES_HELD_OUT = 4
+# the corruption on the card against the CPU on the same draws: the bar of
+# tests/test_torch_corrupt.py (a share of the pixels, the mean difference)
+CORRUPT_SHARE, CORRUPT_MEAN = 5e-3, 1e-3
 
 
 def _train_net(arch, dtype=torch.bfloat16, seed=0):
@@ -2586,11 +2631,12 @@ def _timed_steps(step, state, batches):
     return (time.perf_counter() - t0) * 1e3 / n, m
 
 
-def _train_reading(label, net, kind, teacher=None, size=None):
+def _train_reading(label, net, kind, teacher=None, size=None, files=None):
     """The readings of one configuration at batch 16: render ms, steps/s
     and img/s with the render included and excluded, device busy and idle
     share of a step, peak memory; the GroupNorm launches of a step (the
-    student's and the teacher's); the loss falling on a fixed batch."""
+    student's and the teacher's); the loss falling on a fixed batch; then,
+    with ``files``, the same net on the file dataset (:func:`_train_files`)."""
     from panodepth_torch import synth
     from panodepth_torch.kernels import groupnorm as kg
     from panodepth_torch.models import train as ptrain
@@ -2669,7 +2715,12 @@ def _train_reading(label, net, kind, teacher=None, size=None):
         raise AssertionError(f"train {label}: the teacher launched "
                              f"{by_teacher} groupnorm kernels, expected "
                              f"{TEACHER_NORMS}")
-    return dict(render_ms=render_ms, step_ms=excl_ms, step_ms_render=incl_ms,
+    on_files = None
+    if files is not None:
+        on_files = _train_files(label, step, state, kind, size, files,
+                                teacher is not None, teacher_launches)
+    return dict(files=on_files, render_ms=render_ms, step_ms=excl_ms,
+                step_ms_render=incl_ms,
                 steps_per_s=1e3 / excl_ms, steps_per_s_render=1e3 / incl_ms,
                 img_per_s=TRAIN_BATCH * 1e3 / excl_ms,
                 img_per_s_render=TRAIN_BATCH * 1e3 / incl_ms,
@@ -2677,6 +2728,154 @@ def _train_reading(label, net, kind, teacher=None, size=None):
                 held_gib=held / 2 ** 30,
                 launches_student=student, launches_teacher=by_teacher,
                 loss_first=losses[0], loss_last=losses[-1])
+
+
+def _write_files(root):
+    """The file dataset: ``synth.write_dataset`` on the card into ``root``
+    (rgb/ and gt/ in Matterport3D's naming)."""
+    from panodepth_torch import synth
+
+    t0 = time.perf_counter()
+    synth.write_dataset(root, TRAIN_FILES, width=TRAIN_FILES_WIDTH, seed=SEED,
+                        version="mix", device="cuda", log=lambda *a: None)
+    secs = time.perf_counter() - t0
+    files = dict(rgb=os.path.join(root, "rgb"), gt=os.path.join(root, "gt"))
+    print(f"train files: {TRAIN_FILES} mix scenes at {TRAIN_FILES_WIDTH}x"
+          f"{TRAIN_FILES_WIDTH // 2} (quality-95 JPEG RGB, 16-bit PNG gt) "
+          f"written in {secs!r} s")
+    return dict(files, write_s=secs)
+
+
+def _train_decode(files):
+    """ms to decode a batch of 16 pairs on one thread and on the pool, in
+    turns (1, pool, pool, 1); the two bit-equal."""
+    from panodepth_torch.models import data as pdata
+
+    pairs = pdata.discover_pairs(files["rgb"], files["gt"])[:TRAIN_BATCH]
+    n = pdata.DECODE_THREADS
+    turns = {1: [], n: []}
+    out = {}
+    for threads in (1, n, n, 1):
+        t0 = time.perf_counter()
+        out[threads] = pdata._load_pair_chunk(pairs, threads)
+        turns[threads].append((time.perf_counter() - t0) * 1e3)
+    same = all(np.array_equal(a, b) for pa, pb in zip(out[1], out[n])
+               for a, b in zip(pa, pb))
+    cpus = len(os.sched_getaffinity(0))
+    ms = {t: float(np.median(v)) for t, v in turns.items()}
+    print(f"train files decode: a batch of {TRAIN_BATCH} pairs ({TRAIN_BATCH} "
+          f"JPEG + {TRAIN_BATCH} 16-bit PNG at {TRAIN_FILES_WIDTH}x"
+          f"{TRAIN_FILES_WIDTH // 2}) {ms[1]!r} ms on 1 thread, {ms[n]!r} ms "
+          f"on {n} threads ({os.cpu_count()} CPUs, {cpus} in this process's "
+          f"affinity; turns {turns!r}); pool bit-equal to serial {same}")
+    if not same:
+        raise AssertionError("train files: the threaded decode differs from "
+                             "the serial decode")
+    return dict(ms_1_thread=ms[1], ms_pool=ms[n], threads=n, cpus=cpus,
+                turns={str(k): v for k, v in turns.items()})
+
+
+def _train_files(label, step, state, kind, size, files, has_teacher,
+                 teacher_launches):
+    """The net of :func:`_train_reading` on the file dataset with --augment
+    --corrupt (``train_cli.batch_stream``: decode on the pool, augment,
+    corrupt on the card, pinned copies), timed in turns against the same
+    net on --synth batches with --corrupt (files, synth, synth, files: 2
+    warm-ups, then ``TRAIN_TIMED`` steps, decode or render included); the
+    corruption's device ms a batch; device busy and idle share of a file
+    step; its GroupNorm launches (the student's 0, the teacher's 31)."""
+    from panodepth_torch import train_cli
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import data as pdata
+    from panodepth_torch.ops import corrupt as pcorrupt
+
+    dev = torch.device("cuda")
+    pairs = pdata.discover_pairs(files["rgb"], files["gt"])
+    kw = dict(view_size=size, pano_width=size, corrupt=True)
+    streams = dict(
+        files=train_cli.batch_stream(kind, SEED, TRAIN_BATCH, dev, pairs=pairs,
+                                     augment=True, **kw),
+        synth=train_cli.batch_stream(kind, SEED, TRAIN_BATCH, dev,
+                                     synth_version="mix", **kw))
+    feeds = {k: (train_cli.to_device(b, dev) for b in stream)
+             for k, (_, stream) in streams.items()}
+    turns = {"files": [], "synth": []}
+    try:
+        for form in ("files", "synth", "synth", "files"):
+            for _ in range(2):
+                state, _ = step(state, next(feeds[form]))
+            ms, m = _timed_steps(step, state, feeds[form])
+            turns[form].append(ms)
+            if not math.isfinite(float(m["loss"])):
+                raise AssertionError(f"train {label} {form}: loss {m}")
+        kg.LAUNCHES, teacher_launches[0] = 0, 0
+        state, _ = step(state, next(feeds["files"]))
+        torch.cuda.synchronize()
+        teacher, student = teacher_launches[0], kg.LAUNCHES - teacher_launches[0]
+        busy_ms, _ = _device_profile(lambda: step(state, next(feeds["files"])))
+        rgb = next(feeds["synth"])[0]
+    finally:
+        for feed in feeds.values():
+            feed.close()
+        for source, stream in streams.values():
+            stream.close()
+            source.close()
+    corrupt_ms = _median_ms(lambda: pcorrupt.corrupt(
+        rgb, pcorrupt.batch_generator(SEED, 0, dev)), runs=5, warmup=1)
+    ms = {k: float(np.median(v)) for k, v in turns.items()}
+    idle = 1 - busy_ms / ms["files"] if busy_ms > 0 else None
+    print(f"train {label} on files (--augment --corrupt, {len(pairs)} pairs) "
+          f"against --synth --corrupt, in turns (files, synth, synth, files; "
+          f"decode or render included): files {ms['files']!r} ms a step "
+          f"({1e3 / ms['files']!r} steps/s, {TRAIN_BATCH * 1e3 / ms['files']!r}"
+          f" img/s), synth {ms['synth']!r} ms ({1e3 / ms['synth']!r} steps/s, "
+          f"{TRAIN_BATCH * 1e3 / ms['synth']!r} img/s); turns {turns!r}; a "
+          f"file step's device busy {busy_ms!r} ms (idle share {idle!r}); "
+          f"corruption {corrupt_ms!r} ms a batch of {TRAIN_BATCH} on the "
+          f"card (CUDA events); groupnorm launches a file step: student "
+          f"{student}, teacher {teacher}")
+    if student != 0:
+        raise AssertionError(f"train {label} on files: the student's norms "
+                             f"launched {student} groupnorm kernels")
+    if has_teacher and teacher != TEACHER_NORMS * kg.launches_per_call():
+        raise AssertionError(f"train {label} on files: the teacher launched "
+                             f"{teacher} groupnorm kernels, expected "
+                             f"{TEACHER_NORMS}")
+    return dict(step_ms=ms["files"], steps_per_s=1e3 / ms["files"],
+                img_per_s=TRAIN_BATCH * 1e3 / ms["files"],
+                synth_step_ms=ms["synth"], synth_steps_per_s=1e3 / ms["synth"],
+                turns=turns, busy_ms=busy_ms, idle_share=idle,
+                corrupt_ms=corrupt_ms, launches_student=student,
+                launches_teacher=teacher, rgb=rgb)
+
+
+def _train_corrupt_card_vs_cpu(rgb):
+    """The corruption on the card against the CPU on the same draws (made
+    on the host), on a batch of the main path's shape."""
+    from panodepth_torch.ops import corrupt as pcorrupt
+
+    draws = pcorrupt.draw(rgb.shape, torch.Generator().manual_seed(SEED))
+    got = pcorrupt.apply(rgb, draws).cpu().numpy()
+    want = pcorrupt.apply(rgb.cpu(), draws).numpy()
+    d = np.abs(got.astype(np.float64) - want)
+    noise = pcorrupt.eval_noise(rgb.shape, 0)
+    e = np.abs(pcorrupt.eval_corruption(rgb, noise=noise).cpu().numpy()
+               .astype(np.float64)
+               - pcorrupt.eval_corruption(rgb.cpu(), noise=noise).numpy())
+    out = dict(share=float((d > 0).mean()), mean=float(d.mean()),
+               max=float(d.max()), eval_share=float((e > 0).mean()),
+               eval_mean=float(e.mean()), eval_max=float(e.max()))
+    print(f"train corruption card vs cpu (same draws, {tuple(rgb.shape)}): "
+          f"apply differs on a share {out['share']!r} of the values, mean "
+          f"{out['mean']!r}, max {out['max']!r}; eval_corruption share "
+          f"{out['eval_share']!r}, mean {out['eval_mean']!r}, max "
+          f"{out['eval_max']!r} (bars: share {CORRUPT_SHARE}, mean "
+          f"{CORRUPT_MEAN})")
+    if max(out["share"], out["eval_share"]) > CORRUPT_SHARE or \
+            max(out["mean"], out["eval_mean"]) > CORRUPT_MEAN:
+        raise AssertionError("train: the corruption on the card differs from "
+                             "the CPU's")
+    return out
 
 
 def _train_families():
@@ -2752,26 +2951,174 @@ def _train_card_vs_cpu():
                 grad_norm_rel=gn_rel)
 
 
-def _train_cli_start(tmp):
-    """``python -m panodepth_torch.train_cli fastpano`` with the zoo recipe
-    and its teacher for 3 steps, in a child process."""
-    cmd = [sys.executable, "-m", "panodepth_torch.train_cli", "fastpano",
-           "x", "x", tmp, "--synth", "--synth-version", "mix",
-           "--batch-size", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
-           "--pano-width", "512", "--steps", "3", "--log-every", "1",
-           "--distill-from", TEACHER_CKPT, "--distill-weight", "0.5"]
-    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            env=dict(os.environ, PYTHONPATH=ROOT))
+class Trainers:
+    """Phase train's ``train_cli`` runs in child processes: the zoo recipe
+    with its teacher for 3 steps on --synth, and for 4 steps on the file
+    dataset (written here on the card) with --augment --corrupt
+    --eval-every 2 --trace.  Started when phase serve begins waiting on
+    its exports (:meth:`start`), awaited before its daemon's burst
+    (:meth:`wait`), checked in phase train; each child's output goes to a
+    file in ``root``."""
+
+    def __init__(self):
+        self.root = tempfile.mkdtemp(prefix="panodepth_smoke_train_")
+        self.ckpt = {k: os.path.join(self.root, "ckpt_" + k)
+                     for k in ("synth", "files")}
+        self.trace = os.path.join(self.root, "trace")
+        self.procs, self.logs, self.files = {}, {}, None
+
+    def _spawn(self, name, args):
+        self.logs[name] = os.path.join(self.root, name + ".log")
+        with open(self.logs[name], "w") as out:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "panodepth_torch.train_cli", *args],
+                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True,
+                env=dict(os.environ, PYTHONPATH=ROOT),
+                preexec_fn=_background)
+
+    def start(self):
+        t0 = time.monotonic()
+        self.files = _write_files(os.path.join(self.root, "files"))
+        recipe = ["--batch-size", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
+                  "--pano-width", "512", "--log-every", "1",
+                  "--distill-from", TEACHER_CKPT, "--distill-weight", "0.5"]
+        self._spawn("synth", ["fastpano", "x", "x", self.ckpt["synth"],
+                              "--synth", "--synth-version", "mix",
+                              "--steps", "3", *recipe])
+        self._spawn("files", ["fastpano", self.files["rgb"],
+                              self.files["gt"], self.ckpt["files"],
+                              "--augment", "--corrupt", "--steps", "4",
+                              "--eval-every", "2", "--trace", self.trace,
+                              *recipe])
+        self.t0 = t0
+        print(f"train: both train_cli children started (the file dataset "
+              f"written first) in {time.monotonic() - t0:.2f} s", flush=True)
+
+    def wait(self):
+        """Wait for both children (no check here)."""
+        for proc in self.procs.values():
+            try:
+                proc.wait(timeout=TRAIN_CLI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        if self.procs:
+            print(f"train: both train_cli children ended "
+                  f"{time.monotonic() - self.t0:.2f} s after their start",
+                  flush=True)
+
+    def output(self, name):
+        """The child's output once it exited 0; raises with it if not."""
+        proc = self.procs[name]
+        proc.wait(timeout=TRAIN_CLI_TIMEOUT)
+        with open(self.logs[name]) as fp:
+            out = fp.read()
+        if proc.returncode != 0:
+            raise AssertionError(f"train_cli {name}: exit {proc.returncode}"
+                                 f"\n{out[-4000:]}")
+        return out
+
+    def close(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.root, ignore_errors=True)
 
 
-def _train_cli_check(proc, tmp, persp, rgbs_u8):
-    """The child's exports: the sidecar, ``fastpano_final`` and its npz,
-    which ``load_model_checkpoint`` reads; the e2e graph (both kernels)
-    on those weights beside the zoo NF net."""
+def _train_cli_files_check(trainers, persp, rgbs_u8):
+    """The file child's holdout lines, finite val_loss, a trace with the
+    card's kernels, and its exports run in the e2e graph beside the zoo NF
+    net."""
     from panodepth_torch.e2e import load_model_checkpoint
 
-    out = _child_output(proc, "train_cli", TRAIN_CLI_TIMEOUT)
+    out = trainers.output("files")
+    trace, tmp = trainers.trace, trainers.ckpt["files"]
+    lines = [line for line in out.splitlines() if "[train]" in line]
+    print("train_cli files: " + " | ".join(lines)[-900:])
+    held = TRAIN_FILES_HELD_OUT
+    for want in (f"[train] holding out {held} pairs for --eval-every "
+                 f"validation",
+                 f"[train] {TRAIN_FILES - held} pairs/host, 1 process(es)"):
+        if not any(line.startswith(want) for line in lines):
+            raise AssertionError(f"train_cli files: no line {want!r}")
+    vals = [float(line.split()[-1]) for line in lines if " val " in line]
+    if len(vals) != 2 or not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"train_cli files: val_loss {vals}")
+    traces = [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"train_cli files: traces {traces}")
+    with open(os.path.join(trace, traces[0])) as fp:
+        events = json.load(fp)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"train_cli files: val_loss {vals!r}; trace {traces[0]} holds "
+          f"{len(events)} events, {kernels} of them the card's kernels")
+    if kernels == 0:
+        raise AssertionError("train_cli files: the trace holds no kernel of "
+                             "the card")
+    base, _ = load_model_checkpoint(os.path.join(tmp,
+                                                 "fastpano_final.params.npz"))
+    dev = torch.device("cuda")
+    rgbs = torch.stack([_pano_feed(r, dev) for r in rgbs_u8])
+    e2e = _family_e2e("trained_files_fastpano", persp, base, rgbs,
+                      replay_count=False)
+    return dict(e2e, val_loss=vals, trace_kernels=kernels,
+                trace_events=len(events))
+
+
+def _merge_debug_nans(cfg, scene, merged0):
+    """The merge CLI with --debug-nans on phase cli's first scene: the
+    stages run eagerly (the Jacobi's launches counted), the output
+    bit-equal to phase cli's."""
+    from panodepth_torch import cli, io as pio
+    from panodepth_torch.kernels import jacobi as kj
+
+    layout = cfg.layout
+    name = "pano_0000"
+    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_nans_") as root:
+        d = {k: os.path.join(root, k) for k in
+             ("rgb", "gt", "baseline", "views", "result_hohonet")}
+        for path in d.values():
+            os.makedirs(path)
+        pio.save_png16(os.path.join(d["rgb"], name + ".png"),
+                       np.zeros((8, 16), np.uint16))
+        pio.save_png16(os.path.join(d["gt"], name + ".png"), scene["gt"])
+        pio.save_png16(os.path.join(d["baseline"], name + ".depth.png"),
+                       scene["base"])
+        for v, view in enumerate(scene["views"]):
+            pio.save_png16(os.path.join(
+                d["views"], f"{name}.{layout.view_tag(v)}.png"), view)
+        argv = ["0", d["rgb"], d["gt"], d["baseline"], d["result_hohonet"],
+                "--no-extract", "--pmap-ext", ".png", "--views-folder",
+                d["views"], "--layout", cfg.layout_name,
+                "--out-width", str(cfg.out_width), "--debug-nans"]
+        kj.LAUNCHES = 0
+        t0 = time.perf_counter()
+        log = stdio.StringIO()
+        with contextlib.redirect_stdout(log):
+            if cli.main(argv) != 0:
+                raise AssertionError("cli.main --debug-nans returned non-zero")
+        secs = time.perf_counter() - t0
+        launches = kj.LAUNCHES
+        got = pio.read_png(os.path.join(d["result_hohonet"], name + ".png"))
+    want = sum(jacobi_launches(cfg))
+    same = bool(np.array_equal(got, merged0))
+    print(f"merge cli --debug-nans: {launches} jacobi launches (eager, "
+          f"expected {want}), output bit-equal to phase cli's {same}, "
+          f"{secs!r} s; it said {log.getvalue().splitlines()[0]!r}")
+    if launches != want or not same:
+        raise AssertionError("merge cli --debug-nans: launches or output")
+    return dict(launches=launches, seconds=secs)
+
+
+def _train_cli_check(trainers, persp, rgbs_u8):
+    """The --synth child's exports: the sidecar, ``fastpano_final`` and its
+    npz, which ``load_model_checkpoint`` reads; the e2e graph (both
+    kernels) on those weights beside the zoo NF net."""
+    from panodepth_torch.e2e import load_model_checkpoint
+
+    out = trainers.output("synth")
+    tmp = trainers.ckpt["synth"]
     print("train_cli: " + " | ".join(
         line for line in out.splitlines() if "[train]" in line)[-600:])
     for name in ("fastpano.config.json", "fastpano_final",
@@ -2823,41 +3170,82 @@ def _train_evaluate():
     if abs(off) > 0.05:
         print(f"train evaluate: rmse {100 * off:+.1f} % off the zoo's "
               f"number (PERF.md says why)")
+    kg.LAUNCHES = 0
+    bad = peval.evaluate(BASE_CKPT, count=16, corrupt=True)
+    torch.cuda.synchronize()
+    bad_launches = kg.LAUNCHES
+    print(f"train evaluate --corrupt zoo fastpano (the same scenes, "
+          f"eval_corruption: gain 0.85, gamma 1.15, noise 0.02, JPEG q40): "
+          f"rmse {bad['rmse']!r} against clean {got['rmse']!r} (delta "
+          f"{bad['rmse'] - got['rmse']!r}), delta1 {bad['delta1']!r} against "
+          f"{got['delta1']!r}; {bad_launches} groupnorm launches")
+    if bad_launches != 4 * GN_CALLS * kg.launches_per_call() or not \
+            bad["corrupt"] or not np.isfinite(bad["rmse"]):
+        raise AssertionError(f"evaluate --corrupt: {bad_launches} groupnorm "
+                             f"launches, record {bad}")
     return dict(got, launches=launches, seconds=secs,
-                route_diff=diff, rmse_off=off)
+                route_diff=diff, rmse_off=off,
+                corrupt=dict(bad, launches=bad_launches))
 
 
-def phase_train(persp, rgbs_u8):
+class _Parts:
+    """Seconds of a phase's parts, each printed as it ends."""
+
+    def __init__(self, phase):
+        self.phase, self.seconds, self.t0 = phase, {}, time.monotonic()
+
+    def done(self, name):
+        now = time.monotonic()
+        self.seconds[name] = now - self.t0
+        self.t0 = now
+        print(f"[part] {self.phase} {name} in {self.seconds[name]:.2f} s",
+              flush=True)
+
+
+def phase_train(cfg, scenes, merged0, persp, rgbs_u8, trainers):
     """Training at full width on the card: FastPanoNet with the zoo recipe
-    and its distillation teacher, the NF perspective net, two steps of each
-    other family, the card's step against the CPU's, ``train_cli`` in a
-    child process with the e2e graph on its weights, and ``evaluate`` on
-    the zoo's FastPanoNet."""
+    and its distillation teacher, the NF perspective net, each also on the
+    file dataset (decode, --augment, --corrupt) in turns against --synth,
+    two steps of each other family, the card's step against the CPU's, the
+    corruption on the card against the CPU's, ``evaluate`` on the zoo's
+    FastPanoNet clean and with --corrupt, the merge CLI with --debug-nans,
+    and ``trainers``' two ``train_cli`` runs (--synth; files with the
+    holdout and --trace; run during phase serve) with the e2e graph on
+    their weights."""
     from panodepth_torch.e2e import load_model_checkpoint
 
+    parts = _Parts("train")
+    files = trainers.files
+    decode = _train_decode(files)
+    parts.done("decode")
     teacher, _ = load_model_checkpoint(TEACHER_CKPT)
     fast = _train_reading("fastpano + teacher", _train_net(
-        dict(model="fastpano")), "pano", teacher=teacher, size=512)
+        dict(model="fastpano")), "pano", teacher=teacher, size=512,
+        files=files)
     del teacher
     torch.cuda.empty_cache()
+    parts.done("fastpano readings")
     nf = _train_reading("perspective nf", _train_net(
-        dict(model="perspective", variant="nf")), "perspective", size=256)
+        dict(model="perspective", variant="nf")), "perspective", size=256,
+        files=files)
     torch.cuda.empty_cache()
+    parts.done("perspective readings")
     others = _train_families()
-    # the child trains while this process checks the CPU step and
-    # evaluates (nothing timed there is a speed claim)
-    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_train_") as tmp:
-        proc = _train_cli_start(tmp)
-        try:
-            card_cpu = _train_card_vs_cpu()
-            ev = _train_evaluate()
-            cli_e2e = _train_cli_check(proc, tmp, persp, rgbs_u8)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    parts.done("other families")
+    card_cpu = _train_card_vs_cpu()
+    corrupt_cpu = _train_corrupt_card_vs_cpu(fast["files"].pop("rgb"))
+    nf["files"].pop("rgb")
+    ev = _train_evaluate()
+    nans = _merge_debug_nans(cfg, scenes[0], merged0)
+    parts.done("card vs cpu, evaluate, merge --debug-nans")
+    cli_e2e = _train_cli_check(trainers, persp, rgbs_u8)
+    cli_files = _train_cli_files_check(trainers, persp, rgbs_u8)
+    parts.done("train_cli children's checks")
     return dict(fastpano=fast, perspective_nf=nf, families=others,
-                card_vs_cpu=card_cpu, evaluate=ev, cli_e2e=cli_e2e)
+                card_vs_cpu=card_cpu, corrupt_card_vs_cpu=corrupt_cpu,
+                evaluate=ev, cli_e2e=cli_e2e, cli_files=cli_files,
+                decode=decode, files_write_s=files["write_s"],
+                merge_debug_nans=nans, parts=parts.seconds)
 
 
 def pio_metrics(scene, emap, out, cfg):
@@ -2908,24 +3296,29 @@ def main():
         batched = phase_batched(cfg, cfg_4096)
     serve_tmp = tempfile.mkdtemp(prefix="panodepth_smoke_serve_")
     early = serve_exports_start(cfg, serve_tmp, SERVE_EARLY)
+    trainers = Trainers()
     try:
         with Phase("graphs"):
             graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs,
                                   e2e)
         with Phase("families"):
+            early.update(serve_exports_start(cfg, serve_tmp,
+                                             SERVE_WITH_FAMILIES))
             families = phase_families(persp, base, rgbs)
             phase_families_cli(rgbs)
         with Phase("serve"):
             served = phase_serve(cfg, scenes, persp, base, rgbs, serve_tmp,
-                                 early)
+                                 early, trainers)
+        with Phase("train"):
+            trained = phase_train(cfg, scenes, merged0, persp, rgbs,
+                                  trainers)
     finally:
         for proc in early.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(serve_tmp, ignore_errors=True)
-    with Phase("train"):
-        trained = phase_train(persp, rgbs)
+        trainers.close()
 
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
@@ -2938,7 +3331,8 @@ def main():
             merge_batched=graphs["batched_launches"],
             e2e_graph=e2e["launches"]["jacobi"],
             serve_merge=served["merge"]["launches"]["jacobi"],
-            serve_e2e=served["e2e"]["launches"]["jacobi"]),
+            serve_e2e=served["e2e"]["launches"]["jacobi"],
+            merge_debug_nans=trained["merge_debug_nans"]["launches"]),
         ms_per_pano_by_batch=batched,
         device_ms_in_e2e_graph=e2e["kernel_ms"].get("jacobi"),
         levels=jac["levels"]), dict(
@@ -2964,6 +3358,11 @@ def main():
             train_teacher=trained["fastpano"]["launches_teacher"],
             evaluate=trained["evaluate"]["launches"],
             e2e_trained_fastpano=trained["cli_e2e"]["launches"][
+                "group_norm"],
+            train_files_teacher=trained["fastpano"]["files"][
+                "launches_teacher"],
+            evaluate_corrupt=trained["evaluate"]["corrupt"]["launches"],
+            e2e_trained_files_fastpano=trained["cli_files"]["launches"][
                 "group_norm"]),
         families={k: dict(v["groupnorm"], e2e_ms_per_pano=v["e2e"][
             "ms_per_pano"], e2e_idle_share=v["e2e"]["idle_share"])

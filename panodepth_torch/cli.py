@@ -124,6 +124,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--p99", default=None, choices=["sort", "topk", "approx"],
                    help="model mode: the perspective net's 99th percentile; "
                         "only the exact sort is ported")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the batch into DIR "
+                        "(a Chrome trace: chrome://tracing, Perfetto)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="abort with FloatingPointError on the first NaN in "
+                        "a stage's result (registration, fusion, the nets), "
+                        "naming the stage and the panorama; the stages run "
+                        "eagerly (the reference's oops! prints, "
+                        "Depth.cpp:1600-1601)")
     late = p.add_argument_group("not ported yet (refused)")
     for name in _NOT_PORTED:  # with or without a value, as in JAX
         late.add_argument("--" + name.replace("_", "-"), nargs="?",
@@ -165,9 +174,20 @@ def main(argv=None) -> int:
         import os
 
         os.environ["PANODEPTH_PNG_LEVEL"] = str(args.png_level)
+    from . import debug
     from .config import MergeConfig
 
     cfg = MergeConfig(layout_name=args.layout, out_width=args.out_width)
+    if args.debug_nans:
+        print("[debug-nans] each stage's result is checked for NaN; the "
+              "stages run eagerly, not from CUDA graphs")
+    with debug.nan_checks(args.debug_nans), \
+            debug.traced(args.trace, "merge", cuda=args.device == "cuda"):
+        _run(args, cfg)
+    return 0
+
+
+def _run(args, cfg) -> None:
     if args.persp_ckpt:
         from .e2e import run_batch_e2e
 
@@ -183,7 +203,7 @@ def main(argv=None) -> int:
             infer_norm=args.infer_norm or "auto",
             base_width=args.base_width, device=args.device,
         )
-        return 0
+        return
     from .pipeline import run_batch
 
     run_batch(
@@ -196,7 +216,6 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, stream=args.stream, jacobi=args.jacobi,
         device=args.device,
     )
-    return 0
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import graphs
+from . import debug, graphs
 from . import io as pio
 from . import metrics as pmetrics
 from . import registration
@@ -186,6 +186,7 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         if baselines is None:
             baselines = torch.cat([baseline_of(rgbs01[k:k + 1])
                                    for k in range(b)])
+            debug.check("baseline net's output", baselines)
         else:
             baselines = _as01(baselines)
         pmaps: List[torch.Tensor] = [None] * layout.num_views  # type: ignore
@@ -194,14 +195,17 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
             depths = torch.stack([depths_of(views[k]) for k in range(b)])
             for j, i in enumerate(idxs):
                 pmaps[i] = depths[:, j]
+        debug.check("perspective net's output", pmaps)
         return baselines, pmaps
 
     @true_f32()
     def fuse_stage(baselines, pmaps):
         pm = _stack_if_uniform(pmaps)
         abcd = registration.register_views_batched(baselines, pm, cfg)
-        out_u16, _ = fuse_batched(baselines, pm, plan, jacobi_fn=relax,
-                                  abcd=abcd)
+        debug.check("registration result", abcd)
+        out_u16, buf = fuse_batched(baselines, pm, plan, jacobi_fn=relax,
+                                    abcd=abcd)
+        debug.check("fusion result", buf)
         return out_u16, abcd
 
     def full(*args):
@@ -331,15 +335,17 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                 np.stack([c[3] for c in chunk + pad]), dev))
         t0 = time.monotonic()
         times = None
-        if profile:
-            baselines, pmaps = models_stage(*args)
-            _host_sync(pmaps[0][:1, :1, :1])
-            t1 = time.monotonic()
-            out_u16, _ = fuse_stage(baselines, pmaps)
-            _host_sync(out_u16[:1, :1, :1])
-            times = ((t1 - t0) * 1000 / n, (time.monotonic() - t1) * 1000 / n)
-        else:
-            out_u16, baselines = full(*args)
+        with debug.where("panoramas " + ", ".join(c[1] for c in chunk)):
+            if profile:
+                baselines, pmaps = models_stage(*args)
+                _host_sync(pmaps[0][:1, :1, :1])
+                t1 = time.monotonic()
+                out_u16, _ = fuse_stage(baselines, pmaps)
+                _host_sync(out_u16[:1, :1, :1])
+                times = ((t1 - t0) * 1000 / n,
+                         (time.monotonic() - t1) * 1000 / n)
+            else:
+                out_u16, baselines = full(*args)
         # the copies back wait for this batch only, not for the next one
         host, done = _to_host_async((out_u16[:n], baselines[:n]), dev)
         return chunk, host, done, t0, times

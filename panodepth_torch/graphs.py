@@ -32,9 +32,11 @@ between; every shape is static per configuration, as under ``jax.jit``.
   ``(data_ptr, dtype, _version)``, the key ``models/layers.Derived`` keys
   its casts with.  A graph bakes in the weights' addresses and those
   casts, so new weights capture anew.
-- **CPU and failures.** On the CPU the function runs eagerly: the CPU has
-  no graph.  On the card a capture that fails raises
-  :class:`CaptureError`; it never falls back to the eager function.
+- **CPU, NaN checks and failures.** On the CPU the function runs eagerly:
+  the CPU has no graph; so it does under ``--debug-nans``
+  (``debug.nans_on()``), whose checks a replay would skip.  On the card a
+  capture that fails raises :class:`CaptureError`; it never falls back to
+  the eager function.
 - **Tracers.** ``torch.export`` (``serve.py``) runs the same functions on
   fake tensors.  A table of :func:`device_cache` is then still computed
   on real tensors (:func:`untraced`), so the cache never keeps a fake
@@ -52,6 +54,8 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 from torch.utils import _python_dispatch
+
+from . import debug
 
 # eager calls on a side stream before each capture
 WARMUP = 2
@@ -184,7 +188,7 @@ class Graphed:
     def __call__(self, *args):
         leaves = []
         spec = _flatten(args, leaves)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or debug.nans_on():
             return self.eager(*_unflatten(spec, iter(
                 [torch.as_tensor(t, device=self.device) for t in leaves])))
         leaves = [torch.from_numpy(np.ascontiguousarray(t))

@@ -90,26 +90,37 @@ def _average_row(filt: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
 
 
 def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the row filters.  A run of Up rows is one cumulative sum down
+    the run (mod 256) on the row before it, and a run of None rows a copy:
+    whole-array numpy calls, which leave the GIL to other decoding
+    threads; Sub, Average and Paeth go row by row."""
     rows = raw.reshape(height, stride + 1)
     kinds, filt = rows[:, 0], rows[:, 1:]
+    if kinds.size and int(kinds.max()) > 4:
+        raise ValueError(f"bad PNG row filter {int(kinds.max())}")
     out = np.empty((height, stride), np.uint8)
     prior = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind, f = kinds[y], filt[y]
+    # the first row of each run of one filter kind
+    starts = np.flatnonzero(np.diff(kinds, prepend=-1)).tolist() + [height]
+    for y0, y1 in zip(starts[:-1], starts[1:]):
+        kind, f = kinds[y0], filt[y0:y1]
         if kind == 0:      # None
-            row = f
-        elif kind == 1:    # Sub: a running sum per byte lane, mod 256
-            row = np.cumsum(f.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:    # Up
-            row = f + prior
-        elif kind == 3:    # Average
-            row = _average_row(f, prior, bpp)
-        elif kind == 4:    # Paeth
-            row = _paeth_row(f, prior, bpp)
+            out[y0:y1] = f
+        elif kind == 2:    # Up: each row plus the one above, mod 256
+            np.cumsum(f, axis=0, dtype=np.uint8, out=out[y0:y1])
+            out[y0:y1] += prior
         else:
-            raise ValueError(f"bad PNG row filter {kind}")
-        out[y] = row
-        prior = out[y]
+            for y in range(y0, y1):
+                if kind == 1:    # Sub: a running sum per byte lane, mod 256
+                    row = np.cumsum(filt[y].reshape(-1, bpp), axis=0,
+                                    dtype=np.uint8).reshape(-1)
+                elif kind == 3:  # Average
+                    row = _average_row(filt[y], prior, bpp)
+                else:            # Paeth
+                    row = _paeth_row(filt[y], prior, bpp)
+                out[y] = row
+                prior = out[y]
+        prior = out[y1 - 1]
     return out
 
 

@@ -16,7 +16,9 @@ Counterpart of ``panodepth/models/train.py`` on one device (its
   (``remat`` recomputes the forward in the backward,
   ``torch.utils.checkpoint``), a teacher's depth under ``no_grad`` for
   distillation, the update.  JAX's step is a pure function; this one
-  updates the parameters, moments and EMA in place;
+  updates the parameters, moments and EMA in place.  Under
+  ``debug.nan_checks`` (``--debug-nans``) it checks the parameters, the
+  loss, the gradients and the updated parameters for NaN;
 * checkpoints: the full state in torch's format in a directory
   ``<model>_<tag>`` (JAX's orbax directory names), and
   :func:`save_params_npz`, the zoo's ``*.params.npz`` (flax paths, flax
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import debug
 from . import weights
 
 
@@ -238,6 +241,7 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
         """(loss, gradients in the parameters' order) at ``state``."""
         rgb, depth, mask = batch
         params = list(state.params.values())
+        debug.check("parameters entering the step", state.params)
         with true_f32(), torch.enable_grad():
             pred = forward(rgb)
             loss = depth_loss(pred, depth, mask, grad_weight)
@@ -246,9 +250,18 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
                     t = teacher_fn(rgb)
                 loss = loss + distill_weight * depth_loss(pred, t, mask,
                                                           grad_weight)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(params, grads)]
+            debug.check("loss", loss)
+            try:
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+            except RuntimeError as e:  # anomaly mode's NaN in the backward
+                if debug.nans_on() and "nan" in str(e):
+                    raise FloatingPointError(
+                        f"--debug-nans: NaN in the gradients: {e}") from e
+                raise
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        debug.check("gradients", dict(zip(state.params, grads)))
+        return loss.detach(), grads
 
     def step(state: TrainState, batch):
         loss, grads = value_and_grad(state, batch)
@@ -257,6 +270,7 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
             gn = global_norm(grads)
             updates = tx.update(grads, state.opt_state, params, norm=gn)
             torch._foreach_add_(params, updates)
+        debug.check("parameters after the update", state.params)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gn}
 

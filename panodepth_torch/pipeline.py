@@ -44,7 +44,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import graphs
+from . import debug, graphs
 from . import io as pio
 from . import metrics as pmetrics
 from . import registration
@@ -119,8 +119,10 @@ def _merge_fn(cfg: MergeConfig, jacobi: str):
     def merge(emaps, pmaps):
         emaps, pmaps = _first_channel(_as01(emaps)), _as01(pmaps)
         abcd = registration.register_views_batched(emaps, pmaps, cfg)
-        out_u16, _ = fuse_batched(emaps, pmaps, plan, jacobi_fn=relax,
-                                  abcd=abcd)
+        debug.check("registration result", abcd)
+        out_u16, buf = fuse_batched(emaps, pmaps, plan, jacobi_fn=relax,
+                                    abcd=abcd)
+        debug.check("fusion result", buf)
         return out_u16, abcd
 
     return merge
@@ -139,12 +141,15 @@ def _staged_fns(cfg: MergeConfig, jacobi: str):
     def register(emaps, pmaps):
         emaps, pmaps = _first_channel(_as01(emaps)), _as01(pmaps)
         abcd = registration.register_views_batched(emaps, pmaps, cfg)
+        debug.check("registration result", abcd)
         return abcd, registration.apply_cubic(pmaps, abcd[..., None, None, :])
 
     @true_f32()
     def fuse_registered(emaps, pmaps_reg):
-        return fuse_batched(_first_channel(_as01(emaps)), pmaps_reg, plan,
-                            jacobi_fn=relax)[0]
+        out_u16, buf = fuse_batched(_first_channel(_as01(emaps)), pmaps_reg,
+                                    plan, jacobi_fn=relax)
+        debug.check("fusion result", buf)
+        return out_u16
 
     return register, fuse_registered
 
@@ -536,15 +541,18 @@ def merge_many(
                             _to_device_async(pmaps, dev))
         t0 = time.monotonic()
         times = None
-        if profile:
-            abcd, pmaps_reg = reg_fn(emaps_h, pmaps_h)
-            _host_sync(abcd)
-            t1 = time.monotonic()
-            out_u16 = _host_sync(fuse_fn(emaps_h, pmaps_reg))
-            times = (int((t1 - t0) * 1000 / n),
-                     int((time.monotonic() - t1) * 1000 / n))
-        else:
-            out_u16, abcd = fn(emaps_h, pmaps_h)
+        names = ", ".join(os.path.basename(items[c[0]]["out"])
+                          for c in chunk)
+        with debug.where(f"panoramas {names}"):
+            if profile:
+                abcd, pmaps_reg = reg_fn(emaps_h, pmaps_h)
+                _host_sync(abcd)
+                t1 = time.monotonic()
+                out_u16 = _host_sync(fuse_fn(emaps_h, pmaps_reg))
+                times = (int((t1 - t0) * 1000 / n),
+                         int((time.monotonic() - t1) * 1000 / n))
+            else:
+                out_u16, abcd = fn(emaps_h, pmaps_h)
         # the copies back wait for this batch only, not for the next one
         host, done = _to_host_async((out_u16, abcd), dev)
         return chunk, emaps, host, done, t0, times
@@ -670,9 +678,11 @@ def run_batch(
         for it in todo:
             i, raw = it["index"], it["raw"]
             try:
-                res = merge_depth_maps(it["baseline"], it["pmaps"], it["out"],
-                                       cfg, it["gt"], jacobi=jacobi,
-                                       profile=profile, device=dev)
+                with debug.where(f"panorama {raw}"):
+                    res = merge_depth_maps(it["baseline"], it["pmaps"],
+                                           it["out"], cfg, it["gt"],
+                                           jacobi=jacobi, profile=profile,
+                                           device=dev)
             except (FileNotFoundError, ValueError, OSError) as e:
                 log(f"{i}/{len(rgb_files)} FAILED ({e}); quarantined, "
                     "continuing")

@@ -1,10 +1,9 @@
-"""Training CLI: ``python -m panodepth_torch.train_cli <model> x x ckpt/
---synth [options]``.
+"""Training CLI: ``python -m panodepth_torch.train_cli <model> rgb/ gt/
+ckpt/ [options]``.
 
-Counterpart of ``panodepth/train_cli.py`` on one device, on procedural
-scenes rendered on the device (``--synth``; ``synth.synth_batches``):
-every family (``perspective`` GN or NF, ``panoramic`` GN or NF,
-``hohonet``, ``bifuse``, ``slicenet``, ``fastpano``) at the JAX widths
+Counterpart of ``panodepth/train_cli.py`` on one device: every family
+(``perspective`` GN or NF, ``panoramic`` GN or NF, ``hohonet``,
+``bifuse``, ``slicenet``, ``fastpano``) at the JAX widths
 (``--width-scale``), the step of ``models/train.py`` (AdamW with warmup
 and cosine decay, ``--ema``, ``--remat``, distillation from a teacher
 checkpoint, ``--distill-from``, whose GroupNorms run the CUDA kernel under
@@ -14,15 +13,28 @@ checkpoint, ``--distill-from``, whose GroupNorms run the CUDA kernel under
 and the architecture sidecar ``<model>.config.json``.  SIGTERM / SIGINT
 checkpoint the current step and exit 0.
 
+The data: a dataset in the reference's folder layout (``rgb/`` and
+``gt/`` under ``--dataset``'s naming, ``models/data.py``: decoded on host
+threads, copied to the device from pinned memory), with ``--augment``; or,
+with ``--synth``, procedural scenes rendered on the device
+(``synth.synth_batches``).  On files, ``--eval-every`` holds out every
+10th pair for validation, and the split stays with the run
+(``eval_holdout`` in the sidecar) across ``--resume``.  ``--corrupt``
+degrades the RGB on the device (``ops/corrupt.py``, its probabilities
+scaled by ``--corrupt-prob``); ``--trace DIR`` writes a ``torch.profiler``
+trace of three steady-state steps; ``--debug-nans`` raises
+FloatingPointError on the first NaN in a step's loss, gradients or
+parameters.
+
 The zoo's FastPanoNet recipe on the card::
 
-    python -m panodepth_torch.train_cli fastpano x x ckpt --synth \\
-        --synth-version mix --batch-size 16 --lr 3e-4 --pano-width 512 \\
+    python -m panodepth_torch.train_cli fastpano rgb gt ckpt \\
+        --batch-size 16 --lr 3e-4 --pano-width 512 --augment --corrupt \\
         --distill-from zoo/panoramic_final.params.npz --distill-weight 0.5
 
-What is not ported yet is refused with the ROADMAP item that brings it:
-training on files (``--augment``, ``--corrupt``, a run without
-``--synth``), multi-process flags, ``--trace`` and ``--debug-nans``.
+(``--synth --synth-version mix`` in place of the folders trains on
+procedural scenes.)  The multi-process flags are refused with the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -40,12 +52,6 @@ FAMILIES = ("perspective", "panoramic", "hohonet", "bifuse", "slicenet",
 # JAX flags that come with later work: parsed, so that passing one is
 # refused with where it stands instead of being taken for something else
 _NOT_PORTED = {
-    "augment": "--augment (training on files, models/data.py; ROADMAP "
-               "Queue 1 item 2)",
-    "corrupt": "--corrupt (ops/corrupt.py; ROADMAP Queue 1 item 2)",
-    "corrupt_prob": "--corrupt-prob (ops/corrupt.py; ROADMAP Queue 1 item 2)",
-    "trace": "--trace (a torch.profiler trace; ROADMAP Queue 1 item 2)",
-    "debug_nans": "--debug-nans (ROADMAP Queue 1 item 2)",
     "coordinator": "--coordinator (multi-process data parallel; ROADMAP "
                    "Queue 1 item 4)",
     "num_processes": "--num-processes (multi-process data parallel; "
@@ -58,8 +64,9 @@ _NOT_PORTED = {
 def build_parser():
     p = argparse.ArgumentParser(prog="panodepth_torch.train_cli")
     p.add_argument("model", choices=FAMILIES)
-    p.add_argument("rgb_folder", help="(unused with --synth)")
-    p.add_argument("gt_folder", help="(unused with --synth)")
+    p.add_argument("rgb_folder", help="RGB panoramas (unused with --synth)")
+    p.add_argument("gt_folder", help="gt depth panoramas, named after the "
+                                     "RGB by --dataset (unused with --synth)")
     p.add_argument("ckpt_dir")
     p.add_argument("--dataset", default="matterport")
     p.add_argument("--batch-size", type=int, default=8)
@@ -113,22 +120,37 @@ def build_parser():
                    help="recompute activations in the backward pass "
                         "(torch.utils.checkpoint): ~1 extra forward per "
                         "step for a much smaller activation footprint")
+    p.add_argument("--augment", action="store_true",
+                   help="geometry-correct augmentation of file batches: "
+                        "horizontal flips and a photometric gain, and "
+                        "azimuth rolls of panoramic batches (--synth scenes "
+                        "are unlimited and skip it)")
+    p.add_argument("--corrupt", action="store_true",
+                   help="camera-pipeline corruption of the RGB on the device "
+                        "(JPEG artifacts, sensor noise, exposure; "
+                        "ops/corrupt.py), the targets untouched; the input "
+                        "size must be a multiple of 16")
+    p.add_argument("--corrupt-prob", type=float, default=1.0, metavar="S",
+                   help="with --corrupt: scale the stages' probabilities "
+                        "(p_jpeg, p_noise, p_photo) by S")
+    p.add_argument("--trace", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of three steady-state "
+                        "steps (the third to the fifth) into DIR as a Chrome "
+                        "trace")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise FloatingPointError on the first NaN in a "
+                        "step's parameters, loss or gradients, naming it and "
+                        "the step (autograd's anomaly detection on)")
     late = p.add_argument_group("not ported yet (refused)")
-    for name in ("augment", "corrupt", "debug_nans"):
-        late.add_argument("--" + name.replace("_", "-"), action="store_true")
-    for name in ("corrupt_prob", "trace", "coordinator", "num_processes",
-                 "process_id"):
+    for name in _NOT_PORTED:
         late.add_argument("--" + name.replace("_", "-"), default=None)
     return p
 
 
 def _refusal(args):
     for name, what in _NOT_PORTED.items():
-        if getattr(args, name) not in (None, False):
+        if getattr(args, name) is not None:
             return f"{what} is not ported yet"
-    if not args.synth:
-        return ("training on files (models/data.py; ROADMAP Queue 1 item 2) "
-                "is not ported yet; pass --synth")
     if args.variant != "gn" and args.model not in ("perspective",
                                                    "panoramic"):
         return "--variant nf is a perspective/panoramic option"
@@ -155,6 +177,93 @@ def _latest_checkpoint(ckpt_path: str):
     return None if best is None else best[1]
 
 
+def batch_stream(kind: str, seed: int, batch_size: int, device, pairs=None,
+                 view_size: int = 256, pano_width: int = 512,
+                 synth_version="v1", augment: bool = False,
+                 corrupt: bool = False, corrupt_prob: float = 1.0):
+    """(source, stream) of (rgb, depth, valid) batches of ``kind`` (``pano``
+    or ``perspective``) from ``seed``: file batches of ``pairs`` (host
+    numpy, decoded on threads, ``augment``-ed; ``models/data.py``), or
+    without ``pairs`` scenes rendered on ``device``.  With ``corrupt`` the
+    stream's RGB is corrupted on ``device`` (``ops/corrupt.py``, the
+    stages' probabilities scaled by ``corrupt_prob``); ``source`` is the
+    stream before that, for closing.  JAX's ``make_batches``."""
+    from . import synth
+    from .models import data as pdata
+
+    if pairs is None:
+        batches = synth.synth_batches(
+            batch_size, kind=kind, view_size=view_size,
+            pano_width=pano_width, seed=seed, version=synth_version,
+            device=device)
+    elif kind == "perspective":
+        batches = pdata.perspective_batches(pairs, batch_size,
+                                            view_size=view_size, seed=seed,
+                                            augment=augment)
+    else:
+        batches = pdata.pano_batches(pairs, batch_size, width=pano_width,
+                                     seed=seed, augment=augment)
+    if not corrupt:
+        return batches, batches
+    from .ops import corrupt as pcorrupt
+
+    c = pcorrupt.CorruptConfig()
+    ccfg = c._replace(p_jpeg=min(1.0, c.p_jpeg * corrupt_prob),
+                      p_noise=min(1.0, c.p_noise * corrupt_prob),
+                      p_photo=min(1.0, c.p_photo * corrupt_prob))
+    return batches, pcorrupt.corrupt_batches(batches, seed, ccfg,
+                                             device=device)
+
+
+def to_device(batch, device):
+    """A batch's arrays as tensors on ``device``: host arrays through pinned
+    memory, without blocking."""
+    import torch
+
+    from .ops.corrupt import on_device
+
+    out = []
+    for a in batch:
+        t = torch.as_tensor(a)
+        if not on_device(t, device):
+            if device.type == "cuda":
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
+        out.append(t)
+    return tuple(out)
+
+
+def _holdout(args, pairs, log):
+    """(training pairs, validation pairs or None, holdout): every 10th pair
+    held out with --eval-every, or where the sidecar of the run being
+    resumed says so (the split is sticky: a later run without
+    --eval-every must not train on the held-out pairs); the validation
+    list padded by repetition to at least one batch."""
+    holdout = bool(args.eval_every)
+    sidecar = os.path.join(args.ckpt_dir, f"{args.model}.config.json")
+    if not holdout and os.path.exists(sidecar):
+        try:
+            with open(sidecar) as fp:
+                holdout = bool(json.load(fp).get("eval_holdout"))
+        except (OSError, ValueError):
+            pass
+        if holdout:
+            log("[train] maintaining the validation holdout recorded by the "
+                "original run (sidecar eval_holdout)")
+    if not holdout:
+        return pairs, None, False
+    val_pairs = pairs[::10]
+    pairs = [p for i, p in enumerate(pairs) if i % 10]
+    if not pairs:
+        raise SystemExit("dataset too small to hold out a validation split "
+                         "(--eval-every)")
+    log(f"[train] holding out {len(val_pairs)} pairs for --eval-every "
+        f"validation")
+    while len(val_pairs) < args.batch_size:
+        val_pairs = val_pairs * 2
+    return pairs, val_pairs, True
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refusal = _refusal(args)
@@ -162,20 +271,52 @@ def main(argv=None) -> int:
         raise SystemExit(f"panodepth_torch.train_cli: {refusal}")
     import torch
 
-    from . import synth
+    from . import debug
+
+    if args.debug_nans:
+        print("[debug-nans] each step's parameters, loss and gradients are "
+              "checked for NaN; autograd's anomaly detection is on")
+    with debug.nan_checks(args.debug_nans), \
+            torch.autograd.set_detect_anomaly(args.debug_nans):
+        return _train(args)
+
+
+def _train(args) -> int:
+    import torch
+
+    from . import debug
+    from .models import data as pdata
     from .models import layers, train as ptrain, weights
     from .pipeline import resolve_device, true_f32
 
     dev = resolve_device(args.device)
     log = print
     bs = args.batch_size
-    log(f"[train] on-device synthetic scenes, 1 process, device {dev}")
+
+    pairs = val_pairs = None
+    holdout = False
+    if args.synth:
+        log(f"[train] on-device synthetic scenes, 1 process, device {dev}")
+    else:
+        pairs = pdata.discover_pairs(args.rgb_folder, args.gt_folder,
+                                     args.dataset)
+        if not pairs:
+            raise SystemExit("no (rgb, gt) pairs found")
+        pairs, val_pairs, holdout = _holdout(args, pairs, log)
+        log(f"[train] {len(pairs)} pairs/host, 1 process(es), device {dev}")
+
+    batch_kind = "perspective" if args.model == "perspective" else "pano"
+    if args.corrupt:
+        sz = args.view_size if batch_kind == "perspective" \
+            else args.pano_width
+        if sz % 16:
+            raise SystemExit(f"--corrupt needs the input size to be a "
+                             f"multiple of 16 (JPEG 4:2:0 MCU), got {sz}")
 
     # the architecture sidecar (weights.build_model reads it)
     arch = dict(model=args.model, width_scale=args.width_scale,
                 view_size=args.view_size, pano_width=args.pano_width,
-                eval_holdout=False, variant=args.variant)
-    batch_kind = "perspective" if args.model == "perspective" else "pano"
+                eval_holdout=holdout, variant=args.variant)
     # flax's initializers from a fixed generator, as JAX's init_state draws
     # from PRNGKey(0); hohonet/slicenet fix their height to --pano-width
     model = weights.build_model(arch)
@@ -203,15 +344,19 @@ def main(argv=None) -> int:
             start_step = state.step
             log(f"[train] resumed {latest} at step {start_step}")
 
-    def make_batches(seed):
-        return synth.synth_batches(bs, kind=batch_kind,
-                                   view_size=args.view_size,
-                                   pano_width=args.pano_width, seed=seed,
-                                   version=args.synth_version, device=dev)
+    def make_batches(seed, src=None, augment=None, corrupt=None):
+        return batch_stream(
+            batch_kind, seed, bs, dev, pairs=None if args.synth else (
+                pairs if src is None else src),
+            view_size=args.view_size, pano_width=args.pano_width,
+            synth_version=args.synth_version,
+            augment=args.augment if augment is None else augment,
+            corrupt=args.corrupt if corrupt is None else corrupt,
+            corrupt_prob=args.corrupt_prob)
 
     # a resume offsets the seed: the continued run draws a fresh stream
     # instead of replaying the batches already consumed
-    batches = make_batches(args.seed + start_step * 131)
+    source, batches = make_batches(args.seed + start_step * 131)
 
     teacher_fn = None
     if args.distill_from:
@@ -262,13 +407,17 @@ def main(argv=None) -> int:
             mout.flush()
 
     # held-out validation: a fixed batch set from a seed stream disjoint
-    # from training's, drawn once and re-scored in place
+    # from training's (on files, from the held-out pairs, neither augmented
+    # nor corrupted), drawn once and re-scored in place
     run_eval = None
     if args.eval_every:
         import itertools
 
-        eval_data = list(itertools.islice(
-            make_batches(args.seed + 999_331), args.eval_batches))
+        src, stream = make_batches(args.seed + 999_331, src=val_pairs,
+                                   augment=False, corrupt=False)
+        eval_data = [to_device(b, dev) for b in
+                     itertools.islice(stream, args.eval_batches)]
+        src.close()
 
         def run_eval(params):
             """The mean depth loss over the eval set with ``params`` (by
@@ -284,6 +433,8 @@ def main(argv=None) -> int:
                     v.copy_(own[k])
             return total / len(eval_data)
 
+    trace = (debug.Trace(args.trace, "train", cuda=dev.type == "cuda")
+             if args.trace else None)
     caught = {}
 
     def _on_signal(signum, frame):
@@ -297,7 +448,14 @@ def main(argv=None) -> int:
         for step, batch in enumerate(batches, start=start_step):
             if step >= args.steps:
                 break
-            state, metrics = step_fn(state, batch)
+            if trace is not None and step == start_step + 2:
+                # skip the first step and one warm step, then trace three
+                trace.start()
+            with debug.where(f"train step {step}"):
+                state, metrics = step_fn(state, to_device(batch, dev))
+            if trace is not None and trace.running and \
+                    step == start_step + 4:
+                log(f"[train] profiler trace written to {trace.stop()}")
             if step % args.log_every == 0:
                 loss = float(metrics["loss"])
                 gn = float(metrics["grad_norm"])
@@ -324,12 +482,26 @@ def main(argv=None) -> int:
                 break
             if step and step % args.ckpt_every == 0:
                 checkpoint(str(step))
+    except BaseException:
+        if trace is not None and trace.running:
+            log(f"[train] profiler trace written to {trace.stop()} (the run "
+                f"failed)")
+        raise
     finally:
         for s, h in prev.items():
             signal.signal(s, h)
         batches.close()
+        source.close()
         if mout is not None:
             mout.close()
+    if trace is not None:
+        if trace.running:  # the loop ended before the last traced step
+            log(f"[train] profiler trace written to {trace.stop()} (short "
+                f"run: fewer steady-state steps than planned)")
+        elif args.steps - start_step <= 2:
+            log(f"[train] --trace wrote nothing: tracing starts at step "
+                f"{start_step + 2} and this run ended before it (needs at "
+                f"least 3 steps)")
     if not interrupted:
         checkpoint("final")
         log(f"[train] done; checkpoint at {ckpt_path}_final "

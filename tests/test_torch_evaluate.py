@@ -1,7 +1,7 @@
 """``panodepth_torch.models.evaluate`` against ``panodepth.models.evaluate``
 on a small checkpoint written by the JAX package's ``save_params_npz``:
-two held-out scenes (seed 77 000), the same metrics within rel 3e-3, and
-the refused options.  The bar is looser than 1e-3 because both run the
+two held-out scenes (seed 77 000), the same metrics within rel 3e-3; with
+--corrupt within the bar of its test below; and the refused option.  The bar is looser than 1e-3 because both run the
 bf16 net of ``load_model_checkpoint``, whose outputs differ by up to 2^-6
 of their scale (tests/test_torch_train_cli.py): measured 1.1e-3 on the v2
 scenes' RMSE (the renders agree within 2e-5, tests/test_torch_synth.py).
@@ -60,8 +60,36 @@ def test_cli_prints_one_json_line(ckpt, capsys):
     assert rec["count"] == 1 and set(METRICS) <= set(rec)
 
 
-@pytest.mark.parametrize("flag,item", [("--corrupt", "item 2"),
-                                       ("--int8", "item 7")])
+@pytest.mark.parametrize("scenes", ["v1", "v2"])
+def test_evaluate_corrupt_against_jax(ckpt, scenes):
+    """--corrupt: the same checkpoint and scenes through both packages'
+    eval_corruption, whose noise draws differ by construction (jax.random
+    against torch's generator; the deterministic rest is held bit-equal in
+    tests/test_torch_corrupt.py): over one batch of four scenes, RMSE and
+    delta1 within 5e-2 relative (measured: rmse 7.5e-3 on v1, 4.1e-3 on
+    v2; delta1 3.0e-2 and 1.4e-2; two scenes are too few pixels for the
+    bar: delta1 7.8e-2 on v1), and the corruption moves the metrics."""
+    want = jeval.evaluate(ckpt, count=4, scene_version=scenes, corrupt=True)
+    got = teval.evaluate(ckpt, count=4, scene_version=scenes, corrupt=True,
+                         device="cpu")
+    clean = teval.evaluate(ckpt, count=4, scene_version=scenes,
+                           device="cpu")
+    for k in ("rmse", "delta1"):
+        np.testing.assert_allclose(got[k], want[k], rtol=5e-2)
+    assert got["rmse"] != clean["rmse"]
+    assert got["corrupt"] is want["corrupt"] is True
+    for k in ("model", "count", "align_way", "scenes", "int8"):
+        assert got[k] == want[k]
+
+
+def test_cli_corrupt_record(ckpt, capsys):
+    assert teval.main([ckpt, "--count", "1", "--corrupt", "--device",
+                       "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip())
+    assert rec["corrupt"] is True and np.isfinite(rec["rmse"])
+
+
+@pytest.mark.parametrize("flag,item", [("--int8", "item 7")])
 def test_refusals(ckpt, flag, item):
     with pytest.raises(SystemExit) as e:
         teval.main([ckpt, flag, "--device", "cpu"])

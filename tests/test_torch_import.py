@@ -36,8 +36,8 @@ def test_port_imports_neither_jax_nor_panodepth():
                      if m in ("jax", "panodepth", "PIL", "flax", "optax")
                      or m.startswith(("jax.", "panodepth.", "PIL.", "flax.",
                                       "optax.")))
-        # the e2e, serving and training slices' modules are among those
-        # imported
+        # the e2e, serving and training slices' modules (files and
+        # corruption too) are among those imported
         need = {"panodepth_torch.e2e", "panodepth_torch.kernels.groupnorm",
                 "panodepth_torch.serve", "panodepth_torch.daemon",
                 "panodepth_torch.models.norm",
@@ -49,11 +49,13 @@ def test_port_imports_neither_jax_nor_panodepth():
                 "panodepth_torch.ops.resize",
                 "panodepth_torch.models.train",
                 "panodepth_torch.models.evaluate",
-                "panodepth_torch.synth", "panodepth_torch.train_cli"}
+                "panodepth_torch.synth", "panodepth_torch.train_cli",
+                "panodepth_torch.models.data", "panodepth_torch.ops.corrupt",
+                "panodepth_torch.debug"}
         print(len(names), sorted(need - set(names)), bad)
     """)
     n, rest = out.split(" ", 1)
-    assert int(n) >= 26, out  # every module of the package was imported
+    assert int(n) >= 29, out  # every module of the package was imported
     assert rest.strip() == "[] []", out
 
 

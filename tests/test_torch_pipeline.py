@@ -7,10 +7,16 @@
   CLIs: the same files, outputs within 2 u16, metrics within 1e-4.
 * Resume, quarantine, and the CLI's refusals of what is not ported.
   (Stage A on: ``tests/test_torch_stage_a.py``.)
+* ``--trace`` (a Chrome trace, the same outputs) and ``--debug-nans``
+  (bit-equal on a clean scene, alone and batched; FloatingPointError
+  naming the stage and the panorama on a NaN view, where JAX's CLI aborts
+  too in a fresh process).
 """
 
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -257,3 +263,87 @@ def test_cli_kernel_on_cpu_raises(cli_runs):
     with pytest.raises(TypeError, match="CUDA tensor"):
         tcli.main(_argv(root, "result_kernel_cpu", "--device", "cpu",
                         "--jacobi", "kernel"))
+
+
+def _same_outputs(root, result, names, ref="result_torch"):
+    for suffix in (".png", ".png.res.png", ".png.giv.png"):
+        np.testing.assert_array_equal(
+            tio.read_png(os.path.join(root, result, names[0] + suffix)),
+            tio.read_png(os.path.join(root, ref, names[0] + suffix)))
+
+
+def test_cli_trace_writes_a_trace_and_same_outputs(cli_runs, capsys):
+    root, names = cli_runs
+    trace = os.path.join(root, "trace")
+    assert tcli.main(_argv(root, "result_trace", "--device", "cpu",
+                           "--trace", trace)) == 0
+    assert "profiler trace written to" in capsys.readouterr().out
+    files = os.listdir(trace)
+    assert len(files) == 1 and files[0].endswith(".pt.trace.json")
+    with open(os.path.join(trace, files[0])) as fp:
+        events = json.load(fp)["traceEvents"]
+    assert any("register" in str(e.get("name", "")) or
+               "aten::" in str(e.get("name", "")) for e in events)
+    _same_outputs(root, "result_trace", names)
+
+
+def test_cli_debug_nans_clean_run_bit_equal(cli_runs, capsys):
+    root, names = cli_runs
+    for extra, result in ((("--debug-nans",), "result_nans"),
+                          (("--debug-nans", "--batch-size", "2"),
+                           "result_nans_b2")):
+        assert tcli.main(_argv(root, result, "--device", "cpu",
+                               *extra)) == 0
+        assert "run eagerly" in capsys.readouterr().out
+        _same_outputs(root, result, names)
+    from panodepth_torch import debug
+
+    assert not debug.nans_on()  # the switch ends with the run
+
+
+def _nan_view_scene(root, names):
+    """The verify scene with the views of the first panorama as PFM files
+    (depth in metres, ``load_pfm01`` divides by 10), one holding a NaN
+    patch where registration samples it."""
+    _write_verify_scene(root, names)
+    lt = three_fold()
+    for v in range(lt.num_views):
+        png = os.path.join(root, "views", f"{names[0]}.{lt.view_tag(v)}.png")
+        depth = jio.load_image01(png) * 10.0
+        if v == 1:
+            depth[40:70, 40:90] = np.nan
+        tio.save_pfm(png[:-4] + ".pfm", depth)
+
+
+def test_cli_debug_nans_names_the_stage(tmp_path):
+    """A NaN view: the port's CLI exits non-zero with FloatingPointError
+    naming the stage and the panorama; without the flag it runs to its end.
+    JAX's CLI with its flag aborts on the same input too (jax_debug_nans),
+    in a fresh process: JAX reads the flag when it compiles, so in a
+    process that compiled the same merge before, it runs unchecked (ROADMAP,
+    "Pinned by tests"), where the port checks every call."""
+    root = str(tmp_path)
+    names = ["pano_0001", "pano_0002"]
+    _nan_view_scene(root, names)
+    argv = lambda result, *x: _argv(root, result, "--pmap-ext", ".pfm",
+                                    "--limit", "1", *x)
+    with pytest.raises(FloatingPointError,
+                       match="registration result of panorama pano_0001"):
+        tcli.main(argv("result_t", "--device", "cpu", "--debug-nans"))
+    assert not os.path.exists(os.path.join(root, "result_t",
+                                           names[0] + ".png"))
+    assert tcli.main(argv("result_t2", "--device", "cpu")) == 0
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    err = {}
+    for pkg, extra in (("panodepth_torch", ("--device", "cpu")),
+                       ("panodepth", ("--platform", "cpu"))):
+        proc = subprocess.run(
+            [sys.executable, "-m", pkg,
+             *argv("result_" + pkg, *extra, "--debug-nans")],
+            cwd=repo, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=repo, JAX_PLATFORMS="cpu"))
+        assert proc.returncode != 0, (pkg, proc.stdout[-2000:])
+        assert "FloatingPointError" in proc.stderr, (pkg, proc.stderr[-2000:])
+        err[pkg] = proc.stderr
+    assert "NaN in the registration result of panorama pano_0001" in \
+        err["panodepth_torch"]

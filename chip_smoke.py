@@ -10,9 +10,10 @@ temporary directory and to the git-ignored ``panodepth_torch/_build/``.
 Phases, each printing its elapsed seconds:
 
 1. device  — the card's name and power limit.
-2. build   — every CUDA source of the port compiled with nvcc and the JPEG
-             codec with g++ (in parallel), with ptxas's registers, shared
-             memory and spills per kernel.
+2. build   — every CUDA source of the port (the Jacobi, the GroupNorm, the
+             int8 conv) compiled with nvcc and the JPEG codec with g++ (in
+             parallel), with ptxas's registers, shared memory and spills
+             per kernel.
 3. kernel  — the Jacobi kernel bit-equal to its plain PyTorch version at
              every level of the 2048 and the 4096 plan, each level's launch
              plan printed; the 2048 levels timed beside the plain version
@@ -22,7 +23,11 @@ Phases, each printing its elapsed seconds:
              (launches counted), against the plain-Jacobi path, and scored
              against the scene's ground truth.
 5. cli     — ``python -m panodepth_torch 0`` (``cli.main``) on two such
-             scenes written as files, then again to check resume.
+             scenes written as files, then again to check resume; then
+             ``python -m panodepth_torch.analyze`` (``analyze.main``) on the
+             first result against its gt, ``--laplacian --json`` and
+             ``--mono360 --json``, on the card equal to ``--device cpu``
+             within 1e-5 relative.
 6. groupnorm — the GroupNorm kernel against its plain version on the 29
              inputs FastPanoNet's norms get at a 256x512 input (the zoo
              weights, a synthetic panorama), as bf16 -> f32 as the path
@@ -88,24 +93,40 @@ Phases, each printing its elapsed seconds:
              perspective net, the GN perspective net beside FastPanoNet):
              launches counted at the capture, the graph bit-equal to eager,
              kernel routes against plain routes, batch 2 against batch 1,
-             time per panorama and idle share; then the model-mode CLI with
+             time per panorama and idle share.  The GN net's int8 graph
+             (``load_model_checkpoint(quantize=True)``): each of its 39
+             int8 convs on the 15 views' real activations, the qconv
+             kernel's int32 sums and bf16 output bit-equal to the plain
+             twin's and the sums to ``F.unfold`` + ``torch._int_mm``'s, each
+             distinct shape and the 39 as a set timed (kernel, plain,
+             unfold + _int_mm, the bf16 ``F.conv2d``) with the bound; the
+             net's output within JAX's 0.12 relative RMS of the float
+             net's; the int8 e2e graph beside FastPanoNet (the checks
+             above, kernel routes equal to plain routes, 39 qconv
+             launches a forward), its u16 distance from the bf16 GN
+             graph's and both timed in turns.  Then the model-mode CLI with
              the BiFuse baseline and the GN perspective net, with resume,
-             and ``--base-width 256`` refused for HoHoNet.
+             ``--base-width 256`` refused for HoHoNet, and the CLI with
+             ``--persp-int8`` (files equal to the in-process int8 graph's).
 14. serve  — the serving path: ``python -m panodepth_torch.serve``
              exports, each in a child process of its own (SliceNet's, the
-             longest, started with phase graphs, the others all at once
-             with phase families),
+             longest, started after phase build, the others with phase
+             stage-a),
              the 2048 merge (batch 4, u16 512x1024 baselines, 15 988x1024
              views), the e2e graph with FastPanoNet + NF (batch 2, u8
              1024x2048 RGB, views 256) and the e2e graph of each other
-             family (batch 1); export seconds and artifact bytes.  Each
-             artifact loaded here (load seconds): its kernel operator nodes
-             (3 ``jacobi``; 29 ``group_norm`` a FastPanoNet forward), the
-             launches of its first call and of a replay under the profiler
-             (26 Jacobi launches a batch, one GroupNorm launch a norm call),
-             its outputs bit-equal to the in-process ``compiled_merge_batched``
-             or ``e2e.full`` graph, then again after a load in a fresh
-             process that imports no JAX; the ``daemon`` on the e2e
+             family and of the int8 GN graph (``--persp-int8``, batch 1);
+             export seconds and artifact bytes.  Each
+             artifact loaded (load seconds; the merge and e2e ones here,
+             each family's in its export child, which holds it when this
+             process says so, one child at a time): its kernel operator
+             nodes (3 ``jacobi``; 29 ``group_norm`` a FastPanoNet forward),
+             the launches of its first call and of a replay under the
+             profiler (26 Jacobi launches a batch, one GroupNorm launch a
+             norm call, 39 qconv launches an int8 forward), its outputs
+             bit-equal to the in-process ``compiled_merge_batched`` or
+             ``e2e.full`` graph; the merge and e2e ones again after a load
+             in a fresh process that imports no JAX; the ``daemon`` on the e2e
              artifact (8 clients, 2 quality-95 JPEG panoramas each, every
              PNG answer bit-equal to the direct call: latency p50/p99, batch
              fill, panoramas/s, host decode and encode ms) and on the merge
@@ -113,9 +134,9 @@ Phases, each printing its elapsed seconds:
              in-process graphs (artifact, graph, graph, artifact) with
              device busy and idle share.  The artifacts live in a temporary
              directory, deleted at the end.  Phase train's two ``train_cli``
-             children run while this phase waits on the exports and loads
-             the artifacts, and end before the daemon's burst; they and the
-             exports run at background priority.
+             children (started before phase cli-e2e) are awaited before
+             the first artifact is loaded; they and the exports (one
+             thread each) run at background priority.
 15. train  — training at full width, batch 16 (the zoo recipe, lr 3e-4,
              mix scenes rendered on the card): FastPanoNet with the zoo's
              UniFuse-class distillation teacher and the NF perspective net
@@ -138,10 +159,13 @@ Phases, each printing its elapsed seconds:
              busy and idle share of a file step and its GroupNorm launches;
              the corruption on the card against the CPU on the same draws;
              ``evaluate --corrupt`` (RMSE beside the clean one, launches);
+             ``evaluate --int8`` on the zoo GN perspective net (RMSE and
+             delta1 beside the float graph's, qconv launches counted);
              the merge CLI with --debug-nans on phase cli's first scene
              (eager: 26 Jacobi launches, output bit-equal to phase cli's);
-             then the two ``train_cli`` children (run during phase serve):
-             3 steps on --synth, and 4 on the files with --eval-every 2
+             then the two ``train_cli`` children (run beside phases
+             cli-e2e and stage-a): 3 steps on --synth, and 4 on the files
+             with --eval-every 2
              --trace (the holdout lines, finite val_loss, a trace holding
              the card's kernels), each child's ``fastpano_final.params.npz``
              run in the e2e graph beside the zoo NF net (``_family_e2e``'s
@@ -178,6 +202,17 @@ import zlib
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+PYCACHE = os.path.join(ROOT, "panodepth_torch", "_build", "pycache")
+if __name__ == "__main__" and os.path.isdir(os.path.dirname(os.path.dirname(
+        PYCACHE))):
+    # the bytecode of every module this run compiles goes to one cache in
+    # the git-ignored build directory, which its child processes (exports,
+    # train runs, the fresh load) read: where the installed packages keep
+    # no bytecode, each new process would compile torch's sources again
+    # (~10 s of a child's start)
+    sys.pycache_prefix = PYCACHE
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -595,6 +630,44 @@ def phase_cli(cfg, scenes, merged0):
         print(f"cli resume: {skips} skip! lines, {kj.LAUNCHES} launches")
         if skips != len(names) or kj.LAUNCHES or again["skipped"] != names:
             raise AssertionError("resume did not skip the finished panoramas")
+        return _analyze_check(
+            os.path.join(d["gt"], names[0] + ".png"),
+            os.path.join(d["result_hohonet"], names[0] + ".png"))
+
+
+# the analysis CLI on the card against the same call on the CPU
+ANALYZE_REL = 1e-5
+
+
+def _analyze_check(gt, result):
+    """``python -m panodepth_torch.analyze`` (``analyze.main``) on the
+    merge's output against its gt, with ``--laplacian --json`` and with
+    ``--mono360 --json``, on the card and with ``--device cpu``: equal
+    within ANALYZE_REL relative."""
+    from panodepth_torch import analyze
+
+    def record(*argv):
+        out = stdio.StringIO()
+        with contextlib.redirect_stdout(out):
+            if analyze.main([gt, result, "--json", *argv]) != 0:
+                raise AssertionError(f"analyze {argv} returned non-zero")
+        return json.loads(out.getvalue().strip().splitlines()[-1])
+
+    recs = {}
+    for mode in (("--laplacian",), ("--mono360",)):
+        t0 = time.perf_counter()
+        card = record(*mode)
+        card_s = time.perf_counter() - t0
+        cpu = record(*mode, "--device", "cpu")
+        worst = max(abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+                    for k in cpu)
+        print(f"analyze {' '.join(mode)} --json on the card ({card_s:.2f} s):"
+              f" {card}; against --device cpu: largest relative difference "
+              f"{worst!r} (bound {ANALYZE_REL})")
+        if card.keys() != cpu.keys() or not worst <= ANALYZE_REL:
+            raise AssertionError(f"analyze {mode}: card {card}, cpu {cpu}")
+        recs[mode[0].lstrip("-")] = dict(card, cpu_rel=worst)
+    return recs
 
 
 # --- the e2e slice: GroupNorm kernel, the zoo nets, the on-device graph ---
@@ -1380,33 +1453,41 @@ def _family_groupnorm(name, net, feed, count):
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def _family_e2e(name, persp, base, rgbs, replay_count=True):
+def _family_e2e(name, persp, base, rgbs, replay_count=True,
+                route_bar=(E2E_ROUTE_MAX_U16, E2E_ROUTE_MEAN_U16),
+                keep=False):
     """The e2e graph at full width with the family's pair, batch 2: launches
     counted at the capture, graph bit-equal to eager, kernel routes against
-    plain routes, batch 2 against batch 1, warm time and idle share; with
-    ``replay_count`` the profiler must see every GroupNorm launch of a
-    replay (without it the count is printed: phase train's graph on
-    freshly trained weights read 57 of 58 in most profiles, with its
-    launches at the capture exact)."""
+    plain routes (within ``route_bar``), batch 2 against batch 1, warm
+    time and idle share; with ``replay_count`` the profiler must see every
+    GroupNorm (and int8 conv) launch of a replay (without it the count is
+    printed: phase train's graph on freshly trained weights read 57 of 58
+    in most profiles, with its launches at the capture exact).  ``keep``
+    adds the graph and its u16 output to the returned numbers."""
     from panodepth_torch import MergeConfig
     from panodepth_torch.e2e import build_batched_e2e
     from panodepth_torch.kernels import groupnorm as kg
     from panodepth_torch.kernels import jacobi as kj
+    from panodepth_torch.kernels import qconv as kq
     from panodepth_torch.models import norm as pnorm
+    from panodepth_torch.models.quantize import qconvs as qconvs_of
 
     cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
     b = rgbs.shape[0]
     norms = sum(isinstance(m, pnorm.GroupNorm) for net in (persp, base)
                 for m in net.modules())
+    qconvs = len(qconvs_of(persp))
     build = lambda **kw: build_batched_e2e(persp, cfg, view_width=256,
                                            base_model=base, base_w=512, **kw)
     full, _, _ = build()
     want = dict(jacobi=graph_launches(sum(jacobi_launches(cfg))),
-                group_norm=graph_launches(b * norms * kg.launches_per_call()))
-    kj.LAUNCHES = kg.LAUNCHES = 0
+                group_norm=graph_launches(b * norms * kg.launches_per_call()),
+                qconv=graph_launches(b * qconvs))
+    kj.LAUNCHES = kg.LAUNCHES = kq.LAUNCHES = 0
     out, bases = full(rgbs)
     torch.cuda.synchronize()
-    launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+    launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES,
+                    qconv=kq.LAUNCHES)
     if launches != want:
         raise AssertionError(f"families {name} e2e launches {launches}, "
                              f"expected {want}")
@@ -1418,10 +1499,11 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True):
     if not (torch.equal(out, eager) and torch.equal(bases, eager_bases)):
         raise AssertionError(f"families {name}: e2e graph differs from its "
                              f"eager stages")
-    plain, _ = build(jacobi="torch", groupnorm="torch")[0].eager(rgbs)
+    plain, _ = build(jacobi="torch", groupnorm="torch",
+                     qconv="torch")[0].eager(rgbs)
     diff = (out.to(torch.int32) - plain.to(torch.int32)).abs()
     route = (int(diff.max()), float(diff.float().mean()))
-    if route[0] > E2E_ROUTE_MAX_U16 or route[1] > E2E_ROUTE_MEAN_U16:
+    if route[0] > route_bar[0] or route[1] > route_bar[1]:
         raise AssertionError(f"families {name}: kernel routes vs plain "
                              f"routes {route}")
     batch_diff = []
@@ -1443,24 +1525,276 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True):
     busy_ms, events = _device_profile(lambda: full(rgbs))
     gn_ms = sum(ms for ms, _, key in events if "gn_cluster" in key)
     gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
-    if replay_count and busy_ms > 0 and gn_seen != b * norms:
+    q_ms = sum(ms for ms, _, key in events if "qconv_kernel" in key)
+    q_seen = sum(n for _, n, key in events if "qconv_kernel" in key)
+    if replay_count and busy_ms > 0 and (gn_seen, q_seen) != (
+            b * norms, b * qconvs):
         raise AssertionError(f"families {name}: the replay ran {gn_seen} "
-                             f"groupnorm launches, expected {b * norms}")
+                             f"groupnorm and {q_seen} qconv launches, "
+                             f"expected {b * norms} and {b * qconvs}")
     idle = 1 - busy_ms / call_ms if busy_ms > 0 else None
-    print(f"families {name} e2e (batch {b}, {norms} norms a panorama): "
+    print(f"families {name} e2e (batch {b}, {norms} norms"
+          + (f" and {qconvs} int8 convs" if qconvs else "")
+          + f" a panorama): "
           f"launches {launches} at the capture; graph bit-equal to eager; "
           f"kernel vs plain routes u16 (max, mean) {route} (bounds "
-          f"{E2E_ROUTE_MAX_U16}, {E2E_ROUTE_MEAN_U16}); batch 2 vs batch 1 "
+          f"{route_bar}); batch 2 vs batch 1 "
           f"{batch_diff}; graph {call_ms / b!r} ms a panorama (host clock, "
           f"median of 5), device busy {busy_ms!r} of {call_ms!r} ms a call "
           f"(idle share {idle!r}), groupnorm {gn_ms!r} ms in {gn_seen} "
-          f"launches; top device time by name (ms, calls):")
+          f"launches" + (f", qconv {q_ms!r} ms in {q_seen} launches"
+                         if qconvs else "")
+          + "; top device time by name (ms, calls):")
     for ms, count, key in events[:8]:
         print(f"  {ms:9.4f} ms  {count:6d}  {key[:90]}")
     return dict(launches=launches, route_diff=route, batch_diff=batch_diff,
                 ms_per_pano=call_ms / b, call_ms=call_ms, busy_ms=busy_ms,
                 idle_share=idle, groupnorm_graph_ms=gn_ms,
-                norms_per_pano=norms)
+                qconv_graph_ms=q_ms, norms_per_pano=norms,
+                qconvs_per_pano=qconvs,
+                **(dict(graph=full, out=out) if keep else {}))
+
+
+# --- the int8 perspective graph (the GN net quantized, the qconv kernel) ---
+
+GN_INT8_QCONVS = 39    # int8 convs a forward: every conv of the GN net but
+                       # its f32 head (perspective.py:80-200)
+INT8_REL_BAR = 0.12    # the int8 net against the float one, relative RMS
+                       # (JAX's bar, tests/test_quantize.py:68)
+PEAK_INT8_OPS = 1979e12  # int8 tensor cores, dense (H100 SXM, 700 W)
+
+
+def _graph_ms(fn, reps=10, runs=5):
+    """Device ms of one ``fn()``: ``reps`` calls captured in a CUDA graph
+    and the graph replayed between CUDA events (median of ``runs``), so
+    that the host's time to launch is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return _median_ms(graph.replay, runs, 1) / reps
+
+
+def _qconv_calls(net, feed):
+    """(module, input) of every QConv call of one forward on ``feed``."""
+    from panodepth_torch.models.quantize import qconvs
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0].clone())))
+        for m in qconvs(net)]
+    with torch.no_grad():
+        net(feed)
+    for h in hooks:
+        h.remove()
+    return calls
+
+
+def _qconv_args(m, x):
+    """The kernel's arguments for the QConv ``m`` on its input ``x``: the
+    quantization pass as the layer runs it."""
+    from panodepth_torch.kernels import qconv as kq
+    from panodepth_torch.models.layers import same_pads
+
+    kh, kw = m.kernel_q.shape[2:]
+    pads = (same_pads(x.shape[2], kh, m.strides[0]),
+            same_pads(x.shape[3], kw, m.strides[1]))
+    xq, sx = kq.quantize_activation(x)
+    return (kq.to_nhwc(xq), m.weight(), sx, m.scale, m.bias, (kh, kw),
+            m.strides, pads, m.dtype)
+
+
+def _qconv_library(args):
+    """(run, check) of the library yardstick on one call's codes: ``F.unfold``
+    (in f16, exact for int8 codes) to an int8 (M, K) matrix, then
+    ``torch._int_mm`` (cuBLASLt), the int32 sums back in NCHW."""
+    import torch.nn.functional as F
+
+    xq, wq, _, _, _, (kh, kw), strides, pads = args[:8]
+    n, h, w, cinp = xq.shape
+    cout = wq.shape[0]
+    wk = wq[:, :kh * kw * cinp].reshape(cout, kh, kw, cinp).permute(
+        0, 3, 1, 2).reshape(cout, -1).contiguous()
+    (t, b), (l, r) = pads
+    x16 = F.pad(xq.permute(0, 3, 1, 2).to(torch.float16), (l, r, t, b))
+    ho = (h + t + b - kh) // strides[0] + 1
+    wo = (w + l + r - kw) // strides[1] + 1
+
+    def run():
+        cols = F.unfold(x16, (kh, kw), stride=strides)
+        a = cols.transpose(1, 2).reshape(-1, wk.shape[1]).to(torch.int8)
+        return torch._int_mm(a, wk.t())
+
+    def sums():
+        return run().view(n, ho * wo, cout).permute(0, 2, 1).reshape(
+            n, cout, ho, wo)
+
+    return run, sums
+
+
+def _qconv_bf16_conv(m, x):
+    """The bf16 ``F.conv2d`` of the same shape (the float graph's conv, on
+    its padded input): the other yardstick."""
+    import torch.nn.functional as F
+    from panodepth_torch.models.layers import same_pads
+
+    kh, kw = m.kernel_q.shape[2:]
+    (t, b), (l, r) = (same_pads(x.shape[2], kh, m.strides[0]),
+                      same_pads(x.shape[3], kw, m.strides[1]))
+    xp = F.pad(x.to(torch.bfloat16), (l, r, t, b))
+    w = (m.kernel_q.float() * m.scale[:, None, None, None]).to(torch.bfloat16)
+    return lambda: F.conv2d(xp, w, stride=m.strides)
+
+
+def _qconv_hold(net, feed):
+    """Every int8 conv of one forward of the int8 GN net on ``feed`` (the
+    15 views of a panorama at 256x256, real activations of the zoo
+    weights): the kernel's int32 sums and bf16 output bit-equal to the
+    plain twin's and the sums to the library's; each distinct shape timed
+    (kernel, plain, ``F.unfold`` + ``torch._int_mm``, the bf16
+    ``F.conv2d``; all but the plain twin from CUDA graphs, the device's
+    time) with its bound, then the 39 calls as a set."""
+    from panodepth_torch.kernels import qconv as kq
+
+    calls = _qconv_calls(net, feed)
+    if len(calls) != GN_INT8_QCONVS:
+        raise AssertionError(f"int8: {len(calls)} qconv calls a forward, "
+                             f"expected {GN_INT8_QCONVS}")
+    max_abs, shapes, rows = 0.0, {}, []
+    total_ops = total_bytes = 0
+    sets = dict(kernel=[], plain=[], library=[], bf16_conv=[])
+    for m, x in calls:
+        args = _qconv_args(m, x)
+        with torch.no_grad():
+            y, acc = kq.cuda_qconv_sums(*args)
+            want = kq.qconv_plain(*args)
+            want_acc = kq.qconv_sums_plain(*args[:2], *args[5:8])
+            lib_run, lib_sums = _qconv_library(args)
+            lib_acc = lib_sums()
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, want_acc) and torch.equal(lib_acc, acc)):
+            raise AssertionError(f"int8: qconv sums differ at "
+                                 f"{tuple(x.shape)} {m.kernel_q.shape}")
+        max_abs = max(max_abs, float((y.float() - want.float()).abs().max()))
+        n, h, w, cinp = args[0].shape
+        cout, cin, kh, kw = m.kernel_q.shape
+        ho, wo = y.shape[2:]
+        ops = 2 * n * ho * wo * cout * kh * kw * cin
+        # the bytes the conv needs: the codes and weight codes at their
+        # own channel count (not the kernel's padding of the stem's 3 to
+        # 16, nor K's to the tile), the scales, the bias, the output
+        nbytes = (n * h * w * cin + cout * kh * kw * cin
+                  + sum(t.numel() * t.element_size() for t in
+                        (args[2], args[3], args[4]) if t is not None)
+                  + y.numel() * y.element_size())
+        total_ops += ops
+        total_bytes += nbytes
+        sets["kernel"].append(lambda a=args: kq.cuda_qconv(*a))
+        sets["plain"].append(lambda a=args: kq.qconv_plain(*a))
+        sets["library"].append(lib_run)
+        sets["bf16_conv"].append(_qconv_bf16_conv(m, x))
+        key = (n, h, w, cin, cout, kh, m.strides[0])
+        shapes[key] = shapes.get(key, 0) + 1
+        if shapes[key] == 1:
+            rows.append((key, len(sets["kernel"]) - 1, ops, nbytes))
+    if max_abs != 0.0:
+        raise AssertionError(f"int8: qconv kernel vs plain max abs {max_abs}")
+    table = []
+    with torch.no_grad():
+        for key, i, ops, nbytes in rows:
+            t = dict(kernel=_graph_ms(sets["kernel"][i], 5, 3),
+                     plain=_median_ms(sets["plain"][i], 2, 1),
+                     library=_graph_ms(sets["library"][i], 5, 3),
+                     bf16_conv=_graph_ms(sets["bf16_conv"][i], 5, 3))
+            bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+            table.append(dict(shape=key, calls=shapes[key], ops=ops,
+                              bytes=nbytes, bound_ms=bound, **{
+                                  f"{k}_ms": v for k, v in t.items()}))
+            print(f"int8 qconv (N, H, W, Cin, Cout, k, stride) {key} x"
+                  f"{shapes[key]}: kernel {t['kernel']!r} ms, plain "
+                  f"{t['plain']!r} ms, unfold + _int_mm {t['library']!r} ms, "
+                  f"bf16 F.conv2d {t['bf16_conv']!r} ms, bound {bound!r} ms "
+                  f"({ops / 1e9:.3f} G int8 ops, {nbytes / 1e6:.3f} MB)")
+        run_all = {k: (lambda fns=fns: [f() for f in fns])
+                   for k, fns in sets.items()}
+        per_set = {k: _median_ms(run, 2, 1) if k == "plain"
+                   else _graph_ms(run, reps=1) for k, run in run_all.items()}
+        host_ms = _median_ms(run_all["kernel"], 5, 1)
+        busy_ms, _ = _device_profile(lambda: [f() for f in sets["kernel"]])
+    ops_ms = total_ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = total_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"int8 qconv: {len(calls)} calls a forward over {len(rows)} "
+          f"shapes, kernel vs plain (sums and bf16 output) max abs "
+          f"{max_abs!r}, sums equal to unfold + _int_mm's; the set "
+          f"({total_ops / 1e12:.4f} T int8 ops, {total_bytes / 1e6:.1f} MB): "
+          f"kernel {per_set['kernel']!r} ms from a CUDA graph (eager "
+          f"{host_ms!r} ms host-timed, device busy {busy_ms!r} ms), plain "
+          f"{per_set['plain']!r} ms, unfold + _int_mm "
+          f"{per_set['library']!r} ms, bf16 F.conv2d "
+          f"{per_set['bf16_conv']!r} ms, bound {max(ops_ms, bytes_ms)!r} ms "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    return dict(calls=len(calls), shapes=table, max_abs_err=max_abs,
+                ms=per_set["kernel"], device_ms=busy_ms, eager_ms=host_ms,
+                plain_ms=per_set["plain"], library_ms=per_set["library"],
+                bf16_conv_ms=per_set["bf16_conv"],
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=total_ops, bytes=total_bytes)
+
+
+def _int8_e2e(gn_net, base, rgbs, feed, gn_e2e):
+    """The int8 graph of the zoo GN perspective net: its convs against the
+    plain twin (:func:`_qconv_hold`), the net's output against the float
+    net's (relative RMS under JAX's bar), then the e2e graph beside
+    FastPanoNet at batch 2 (``_family_e2e``'s checks, the kernel routes
+    equal to the plain routes), its u16 distance from the bf16 GN graph's
+    (``gn_e2e``) and both timed in turns."""
+    from panodepth_torch.e2e import load_model_checkpoint
+    from panodepth_torch.models.quantize import int8_param_bytes
+
+    int8_net, _ = load_model_checkpoint(GN_PERSP_CKPT, quantize=True)
+    held = _qconv_hold(int8_net, feed)
+    with torch.no_grad():
+        y8 = int8_net(feed).float()
+        yf = gn_net(feed).float()
+    rel = float(torch.sqrt(torch.mean((y8 - yf) ** 2))
+                / torch.sqrt(torch.mean(yf ** 2)))
+    print(f"int8 net: output against the bf16 GN net on the 15 views, "
+          f"relative RMS {rel!r} (bar {INT8_REL_BAR}); parameters "
+          f"{int8_param_bytes(int8_net)} bytes against "
+          f"{sum(p.numel() * p.element_size() for p in gn_net.parameters())}")
+    if not rel < INT8_REL_BAR:
+        raise AssertionError(f"int8 net: relative RMS {rel}")
+    e2e = _family_e2e("gn_int8", int8_net, base, rgbs, route_bar=(0, 0.0),
+                      keep=True)
+    d = (e2e.pop("out").to(torch.int32)
+         - gn_e2e["out"].to(torch.int32)).abs()
+    vs_bf16 = (int(d.max()), float(d.float().mean()))
+    runs = dict(bf16=lambda: gn_e2e["graph"](rgbs),
+                int8=lambda: e2e["graph"](rgbs))
+    turns = {"bf16": [], "int8": []}
+    for form in ("bf16", "int8", "int8", "bf16"):
+        turns[form].append(_timed(runs[form]))
+    ab = {}
+    for form, run in runs.items():
+        host = float(np.median(turns[form]))
+        busy, _ = _device_profile(run)
+        ab[form] = dict(ms_per_pano=host / 2, turns=turns[form],
+                        busy_ms_per_pano=busy / 2,
+                        idle_share=(1 - busy / host) if busy > 0 else None)
+    print(f"int8 e2e: u16 (max, mean) against the bf16 GN graph {vs_bf16}; "
+          f"in turns (bf16, int8, int8, bf16): bf16 {ab['bf16']!r}, int8 "
+          f"{ab['int8']!r} (ms a panorama, host clock to synchronize, "
+          f"median; device busy ms a panorama; idle share)")
+    # the graph stays for phase families' CLI check (popped there)
+    return dict(qconv=held, net_rel_rms=rel, e2e=e2e, vs_bf16_u16=vs_bf16,
+                ab=ab, graph=e2e.pop("graph"))
 
 
 def phase_families(persp, base, rgbs_u8):
@@ -1494,16 +1828,23 @@ def phase_families(persp, base, rgbs_u8):
             raise AssertionError(f"families {name}: net check failed")
         pair_persp, pair_base = (net, base) if pair == "fastpano" \
             else (persp, net)
-        e2e = _family_e2e(name, pair_persp, pair_base, rgbs)
+        e2e = _family_e2e(name, pair_persp, pair_base, rgbs,
+                          keep=name == "gn_perspective")
+        if name == "gn_perspective":
+            out["gn_int8"] = _int8_e2e(net, base, rgbs, feed, e2e)
+            del e2e["graph"], e2e["out"]
         out[name] = dict(groupnorm=gn, net_route_abs=diff, e2e=e2e)
         del net
         torch.cuda.empty_cache()
     return out
 
 
-def phase_families_cli(rgbs_u8):
+def phase_families_cli(rgbs_u8, int8_graph):
     """The model-mode CLI with the BiFuse baseline and the GN perspective
-    net, then resume; ``--base-width`` refused for HoHoNet."""
+    net, then resume; ``--base-width`` refused for HoHoNet; then with
+    FastPanoNet and the GN net's int8 graph (``--persp-int8``): the files
+    equal to the in-process int8 graph's (``int8_graph``) panorama by
+    panorama."""
     from panodepth_torch import MergeConfig, cli, io as pio
     from panodepth_torch.kernels import groupnorm as kg
     from panodepth_torch.kernels import jacobi as kj
@@ -1554,6 +1895,33 @@ def phase_families_cli(rgbs_u8):
         print(f"families cli: --base-width 256 with hohonet refused: {msg}")
         if "fixed-width decoder" not in msg:
             raise AssertionError(f"unexpected refusal: {msg}")
+
+        from panodepth_torch.kernels import qconv as kq
+
+        res8 = os.path.join(root, "res_int8")
+        argv = ["0", d["rgb"], d["gt"], d["bl"], res8, "--persp-ckpt",
+                GN_PERSP_CKPT, "--baseline-ckpt", BASE_CKPT, "--persp-int8"]
+        kj.LAUNCHES = kg.LAUNCHES = kq.LAUNCHES = 0
+        if cli.main(argv) != 0:
+            raise AssertionError("cli.main --persp-int8 returned non-zero")
+        launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES,
+                        qconv=kq.LAUNCHES)
+        want = dict(jacobi=graph_launches(per_pano), group_norm=graph_launches(
+            (GN_CALLS + FAMILIES["gn_perspective"][2])
+            * kg.launches_per_call()), qconv=graph_launches(GN_INT8_QCONVS))
+        dev = torch.device("cuda")
+        same = []
+        for name, rgb in zip(names, rgbs_u8):
+            got = pio.read_png(os.path.join(res8, name + ".png"))
+            mem = int8_graph(_pano_feed(rgb, dev)[None])[0][0].cpu().numpy()
+            same.append(bool(np.array_equal(got, mem)))
+        print(f"families cli --persp-int8 (fastpano + the GN net's int8 "
+              f"graph): launches {launches} for {len(names)} panoramas "
+              f"(expected {want}); files equal to the in-process int8 "
+              f"graph's at batch 1: {same}")
+        if launches != want or not all(same):
+            raise AssertionError("families cli --persp-int8")
+    return launches["qconv"]
 
 
 # --- stage A: the reference's own command, JPEG throughout ---
@@ -2159,10 +2527,23 @@ print(json.dumps(report))
 """
 
 
+# an export child of a family's e2e artifact: the export, then the artifact
+# loaded and held in the same process (:func:`export_and_hold`)
+_EXPORT_HOLD = r"""
+import sys
+import chip_smoke
+chip_smoke.export_and_hold(sys.argv[1], sys.argv[2:])
+"""
+
+
 # the niceness of the children that run beside the checks (the exports,
 # the train CLI runs): the host's cores go to this process first, whose
 # profiler must see every launch of the replays it checks
 BACKGROUND_NICE = 10
+# an export child traces on one thread: eight of them beside the checks
+# would otherwise each start a pool as wide as the host
+ONE_THREAD = dict(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                  OPENBLAS_NUM_THREADS="1")
 
 
 def _background():
@@ -2175,7 +2556,8 @@ def _serve_cli(*args):
     return subprocess.Popen([sys.executable, "-m", "panodepth_torch.serve",
                              *args], cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            preexec_fn=_background)
+                            preexec_fn=_background, env=dict(
+                                os.environ, **ONE_THREAD))
 
 
 def _child_output(proc, label, timeout=600):
@@ -2187,9 +2569,9 @@ def _child_output(proc, label, timeout=600):
     return out
 
 
-def _exported(proc, label, path):
-    """Seconds, bytes and kernel nodes of an export child's artifact."""
-    out = _child_output(proc, label)
+def _exported(out, label, path):
+    """Seconds, bytes and kernel nodes of an export child's artifact, from
+    the child's output ``out``."""
     line, = [l for l in out.splitlines() if l.startswith("[serve] wrote")]
     seconds = float(line.rsplit(" in ", 1)[1].split()[0])
     with open(path + ".meta.json") as fp:
@@ -2201,33 +2583,52 @@ def _exported(proc, label, path):
     return info
 
 
-def _replay_kernels(run):
-    """(device busy ms, {jacobi, group_norm: launches}) of one ``run()``
-    under the profiler."""
+# each kernel's wrapper module (its launch count) and its name in a profile
+_COUNTED = dict(jacobi=("jacobi", "jacobi_tile"),
+                group_norm=("groupnorm", "gn_cluster"),
+                qconv=("qconv", "qconv_kernel"))
+
+
+def _launch_counters(keys):
+    """{key: wrapper module} of the kernels ``keys``, their counts at 0."""
+    import importlib
+
+    mods = {k: importlib.import_module(
+        f"panodepth_torch.kernels.{_COUNTED[k][0]}") for k in keys}
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    return mods
+
+
+def _replay_kernels(run, keys=("jacobi", "group_norm")):
+    """(device busy ms, {kernel: launches}) of one ``run()`` under the
+    profiler, for the kernels ``keys``."""
     busy, events = _device_profile(run)
-    return busy, dict(
-        jacobi=sum(c for _, c, n in events if "jacobi_tile" in n),
-        group_norm=sum(c for _, c, n in events if "gn_cluster" in n))
+    return busy, {k: sum(c for _, c, n in events if _COUNTED[k][1] in n)
+                  for k in keys}
 
 
-def _hold_loaded(label, art, ins, want, nodes, per_call):
+def _hold_loaded(label, art, ins, want, nodes, per_call,
+                 before_replay=None):
     """A loaded artifact's kernel nodes, the launches of its first call
     (warm-ups and capture) and of a replay, and its outputs bit-equal to
-    the in-process graph's ``want``; returns its numbers."""
+    the in-process graph's ``want``; returns its numbers.
+    ``before_replay()``, if given, runs between the first call and the
+    profiled replay."""
     from panodepth_torch import serve
-    from panodepth_torch.kernels import groupnorm as kg
-    from panodepth_torch.kernels import jacobi as kj
 
     got_nodes = serve.kernel_nodes(art.program)
-    kj.LAUNCHES = kg.LAUNCHES = 0
+    counters = _launch_counters(per_call)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = art(*ins)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
-    busy, replayed = _replay_kernels(lambda: art(*ins))
+    if before_replay is not None:
+        before_replay()
+    busy, replayed = _replay_kernels(lambda: art(*ins), tuple(per_call))
     print(f"serve {label}: kernel nodes {got_nodes} (expected {nodes}); "
           f"launches at the first call {launches} (expected "
           f"{ {k: graph_launches(v) for k, v in per_call.items()} }), in a "
@@ -2338,13 +2739,115 @@ def _serve_daemon(art, label, bodies, ctype, want, clients, requests,
     return stats, wall
 
 
-# the export that takes longest (SliceNet's GRU, 89-120 s) starts early,
-# at phase graphs, in a child process (one core of the host's); the others
-# (30-48 s each when six run at once) start with phase families, so that
-# phase serve finds them written
+# the families' e2e artifacts (batch 1): each family with its pair, and the
+# GN perspective net's int8 graph beside FastPanoNet (--persp-int8);
+# SliceNet's export, the longest (90-135 s), is loaded last
+SERVE_FAMILIES = tuple(n for n in FAMILIES if n != "slicenet") + (
+    "gn_int8", "slicenet")
 SERVE_EARLY = ("slicenet",)
-SERVE_WITH_FAMILIES = ("merge", "e2e") + tuple(
-    name for name in FAMILIES if name not in SERVE_EARLY)
+SERVE_EXPORTS = ("merge", "e2e") + SERVE_FAMILIES[:-1]
+
+
+def _parent_says(word, name):
+    """Wait for the line ``word`` on stdin (an :func:`export_and_hold`
+    child's cue from the parent)."""
+    if sys.stdin.readline().strip() != word:
+        raise SystemExit(f"serve {name}: the parent did not say {word}")
+
+
+def export_and_hold(name, argv):
+    """An export child's work for the family artifact ``name``:
+    ``serve.main(argv)``, the export as ``python -m panodepth_torch.serve``
+    runs it.  On the parent's ``load`` (when phase serve begins: no
+    profiled check may run while a child works on the card) the artifact
+    is loaded here and the same pair's in-process graph built beside it,
+    and a line says so.  On the parent's ``go`` (every child at once) the
+    loaded artifact is held against the in-process graph on the first e2e
+    panorama (:func:`_hold_loaded`: kernel nodes, launches at the first
+    call, outputs bit-equal), and a line says so; on the parent's
+    ``profile`` (one child at a time, the others idle) the replay is
+    profiled and its launches counted.  The numbers are printed in JSON
+    after ``HOLD_DONE``; the child ends when the parent closes its
+    stdin."""
+    from panodepth_torch import MergeConfig, serve
+    from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
+    from panodepth_torch.models import norm as pnorm
+
+    if serve.main(argv) != 0:
+        raise SystemExit(f"serve {name}: the export failed")
+    sys.stdout.flush()
+    _parent_says("load", name)
+    t0 = time.perf_counter()
+    art = serve.load(argv[1])
+    load_s = time.perf_counter() - t0
+    if name == "gn_int8":
+        net, _ = load_model_checkpoint(GN_PERSP_CKPT, quantize=True)
+        pair = "fastpano"
+    else:
+        ckpt, pair, _ = FAMILIES[name]
+        net, _ = load_model_checkpoint(ckpt)
+    p_net, b_net = ((net, load_model_checkpoint(BASE_CKPT)[0])
+                    if pair == "fastpano"
+                    else (load_model_checkpoint(PERSP_CKPT)[0], net))
+    cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
+    norms = sum(isinstance(m, pnorm.GroupNorm)
+                for n in (p_net, b_net) for m in n.modules())
+    jac_op, gn_op, q_op = serve.KERNEL_OPS
+    nodes = {jac_op: 3, gn_op: norms}
+    per_call = dict(jacobi=sum(jacobi_launches(cfg)), group_norm=norms)
+    if name == "gn_int8":
+        nodes[q_op] = per_call["qconv"] = GN_INT8_QCONVS
+    fam_graph = build_batched_e2e(p_net, cfg, view_width=256,
+                                  base_model=b_net, base_w=512)[0]
+    # the phase's e2e input (phase groupnorm's first panorama)
+    x = torch.tensor(make_rgb(SEED, 2048)[None], device="cuda")
+    print(f"{HOLD_READY} {name}: loaded in {load_s!r} s in the export "
+          f"child", flush=True)
+    _parent_says("go", name)
+
+    def cue():
+        print(f"{HOLD_CALLED} {name}", flush=True)
+        _parent_says("profile", name)
+
+    info = _hold_loaded(f"families {name}", art, [x], fam_graph(x), nodes,
+                        per_call, before_replay=cue)
+    print(HOLD_DONE, json.dumps(dict(load_s=load_s, **info)), flush=True)
+    sys.stdin.read()
+
+
+# the lines an export_and_hold child prints once it has loaded its
+# artifact, once it has called it, and with its numbers
+HOLD_READY, HOLD_CALLED, HOLD_DONE = "serve ready", "serve called", \
+    "serve held"
+
+
+def _tell(proc, word):
+    """Write the line ``word`` to an :func:`export_and_hold` child."""
+    proc.stdin.write(word + "\n")
+    proc.stdin.flush()
+
+
+def _read_until(proc, prefix, label):
+    """A child's output up to and including its first line that starts
+    with ``prefix``; raises with the output if the child ends first."""
+    lines = []
+    while not (lines and lines[-1].startswith(prefix)):
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"serve {label}: exit {proc.wait()} before "
+                                 f"{prefix!r}\n{''.join(lines)[-4000:]}")
+        lines.append(line)
+    return "".join(lines)
+
+
+def _hold_child(name, argv):
+    """:func:`export_and_hold` of ``name`` in a child process started from
+    the repository root, at background priority, its stdin a pipe."""
+    return subprocess.Popen([sys.executable, "-c", _EXPORT_HOLD, name, *argv],
+                            cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, preexec_fn=_background,
+                            env=dict(os.environ, **ONE_THREAD))
 
 
 def serve_exports_start(cfg, tmp, names):
@@ -2356,6 +2859,7 @@ def serve_exports_start(cfg, tmp, names):
     for name, (ckpt, pair, _) in FAMILIES.items():
         pairs[name] = ((ckpt, BASE_CKPT) if pair == "fastpano"
                        else (PERSP_CKPT, ckpt)) + (1,)
+    pairs["gn_int8"] = (GN_PERSP_CKPT, BASE_CKPT, 1)
     procs = {}
     for name in names:
         if name == "merge":
@@ -2365,11 +2869,13 @@ def serve_exports_start(cfg, tmp, names):
                 "--out-width", str(cfg.out_width))
             continue
         p_ckpt, b_ckpt, b = pairs[name]
-        procs[name] = _serve_cli(
-            "export-e2e", path(name), "--batch", str(b),
-            "--persp-ckpt", p_ckpt, "--baseline-ckpt", b_ckpt,
-            "--view-width", "256", "--layout", cfg.layout_name,
-            "--out-width", str(cfg.out_width))
+        argv = ["export-e2e", path(name), "--batch", str(b),
+                "--persp-ckpt", p_ckpt, "--baseline-ckpt", b_ckpt,
+                "--view-width", "256", "--layout", cfg.layout_name,
+                "--out-width", str(cfg.out_width),
+                *(["--persp-int8"] if name == "gn_int8" else [])]
+        procs[name] = (_serve_cli(*argv) if name == "e2e"
+                       else _hold_child(name, argv))
     return procs
 
 
@@ -2378,27 +2884,33 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
     batch 2) exported by ``python -m panodepth_torch.serve`` and every other
     family's e2e graph at batch 1, each export in a child process of its
     own into ``tmp`` (``procs``: those started earlier, SERVE_EARLY and
-    SERVE_WITH_FAMILIES; any other starts here); each artifact loaded here
-    and held
-    bit-equal to its in-process graph with its kernel nodes and launches,
-    then in a fresh process; the daemon over both; the replays timed in
-    turns against the in-process graphs.  ``trainers`` (phase train's
-    ``train_cli`` children) run while this phase waits on the exports and
-    loads the artifacts, and end before the daemon's burst."""
+    SERVE_EXPORTS; any other starts here).  The merge and e2e artifacts
+    are loaded here and held bit-equal to their in-process graphs with
+    their kernel nodes and launches, then in a fresh process, and the
+    daemon serves both; each family's artifact is loaded in its export
+    child (:func:`export_and_hold`) once this phase begins and held there,
+    one child at a time; then the replays are timed in turns against the
+    in-process graphs.
+    ``trainers`` (phase train's ``train_cli`` children, started before
+    phase cli-e2e) are awaited before the first artifact is loaded."""
     from panodepth_torch import daemon as pdaemon
     from panodepth_torch import jpeg, pipeline, serve
-    from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
-    from panodepth_torch.models import norm as pnorm
+    from panodepth_torch.e2e import build_batched_e2e
 
     dev = torch.device("cuda")
     per_batch = sum(jacobi_launches(cfg))
     path = lambda name: os.path.join(tmp, name + ".pt2")
+    t_phase, marks = time.monotonic(), {}
     try:
-        trainers.start()
         # (a) every export not started yet, at once
         procs.update(serve_exports_start(cfg, tmp, [
-            name for name in ("merge", "e2e", *FAMILIES)
+            name for name in ("merge", "e2e", *SERVE_FAMILIES)
             if name not in procs]))
+        # no train child beside the profiled checks below
+        trainers.wait()
+        # each family's export child loads its artifact from now on
+        for name in SERVE_FAMILIES:
+            _tell(procs[name], "load")
         # meanwhile the inputs and the in-process graphs' outputs
         order = [0, 1, 1, 0]
         emaps = np.stack([scenes[k]["base"] for k in order])
@@ -2414,34 +2926,43 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
         want = {k: graph[k](*ins[k]) for k in graph}
         np.savez(os.path.join(tmp, "merge.in.npz"), a0=emaps, a1=pmaps)
         np.savez(os.path.join(tmp, "e2e.in.npz"), a0=rgbs)
-        exports = {k: _exported(procs.pop(k), k, path(k))
+        exports = {k: _exported(_child_output(procs.pop(k), k), k, path(k))
                    for k in ("merge", "e2e")}
-        procs["fresh"] = subprocess.Popen(
-            [sys.executable, "-c", _FRESH_LOAD, ROOT, tmp, "merge",
-             "e2e"], cwd=tmp, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+        for k in ("merge", "e2e"):
+            procs["fresh_" + k] = subprocess.Popen(
+                [sys.executable, "-c", _FRESH_LOAD, ROOT, tmp, k], cwd=tmp,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
         # (b), (c) loaded here: kernel nodes, launches, bit-equal
         arts, loaded = {}, {}
         # a jacobi node per pyramid level, a group_norm node per norm
         # call (29 a FastPanoNet forward, one forward a panorama)
-        jac_op, gn_op = serve.KERNEL_OPS
+        jac_op, gn_op, _ = serve.KERNEL_OPS
         gn_calls = SERVE_E2E_BATCH * GN_CALLS
         expect = dict(
             merge=({jac_op: 3}, dict(jacobi=per_batch, group_norm=0)),
             e2e=({jac_op: 3, gn_op: gn_calls},
                  dict(jacobi=per_batch, group_norm=gn_calls)))
+        load_s = {}
         for k in ("merge", "e2e"):
             t0 = time.perf_counter()
             arts[k] = serve.load(path(k))
-            load_s = time.perf_counter() - t0
-            print(f"serve {k}: loaded in {load_s!r} s")
-            loaded[k] = dict(load_s=load_s, **exports[k], **_hold_loaded(
+            load_s[k] = time.perf_counter() - t0
+            print(f"serve {k}: loaded in {load_s[k]!r} s")
+        # the holds profile a replay: first every other process's work on
+        # the card ends (the fresh loads, the children's loads)
+        fresh = {k: json.loads(_child_output(
+            procs.pop("fresh_" + k), "fresh load").splitlines()[-1])[k]
+            for k in ("merge", "e2e")}
+        ready = {name: _read_until(procs[name], HOLD_READY, name)
+                 for name in SERVE_FAMILIES}
+        marks["loads"] = time.monotonic() - t_phase
+        for k in ("merge", "e2e"):
+            loaded[k] = dict(load_s=load_s[k], **exports[k], **_hold_loaded(
                 k, arts[k], ins[k], want[k], *expect[k]))
 
-        # (e) the daemon: a burst of JPEG panoramas at the e2e artifact,
-        # a few .npz merges at the merge artifact; no train child running
-        trainers.wait()
+        # (f) the daemon: a burst of JPEG panoramas at the e2e artifact,
+        # a few .npz merges at the merge artifact
         panos = [make_rgb(SEED + 10 + i, 2048) for i in range(4)]
         bodies = [jpeg.encode(p, quality=95) for p in panos]
         t0 = time.perf_counter()
@@ -2503,32 +3024,8 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
               f"each answer bit-equal to the direct call; stats "
               f"{m_stats}")
 
-        # (f) every other family, batch 1, against its in-process graph
-        families = {}
-        for name, (ckpt, pair, _) in FAMILIES.items():
-            info = _exported(procs.pop(name), name, path(name))
-            net, _ = load_model_checkpoint(ckpt)
-            p_net, b_net = (net, base) if pair == "fastpano" \
-                else (persp, net)
-            norms = sum(isinstance(m, pnorm.GroupNorm)
-                        for n in (p_net, b_net) for m in n.modules())
-            fam_graph = build_batched_e2e(p_net, cfg, view_width=256,
-                                          base_model=b_net, base_w=512)[0]
-            x = ins["e2e"][0][:1]
-            t0 = time.perf_counter()
-            art = serve.load(path(name))
-            info["load_s"] = time.perf_counter() - t0
-            info.update(_hold_loaded(
-                f"families {name}", art, [x], fam_graph(x),
-                {jac_op: 3, gn_op: norms},
-                dict(jacobi=per_batch, group_norm=norms)))
-            families[name] = info
-            del net, fam_graph, art
-            torch.cuda.empty_cache()
-
+        marks["daemon"] = time.monotonic() - t_phase
         # (c) again in the fresh process
-        fresh = json.loads(_child_output(procs.pop("fresh"),
-                                         "fresh load").splitlines()[-1])
         for k in ("merge", "e2e"):
             with np.load(os.path.join(tmp, k + ".fresh.npz")) as z:
                 same = all(np.array_equal(z[f"arr_{j}"], w.cpu().numpy())
@@ -2542,6 +3039,42 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
                 raise AssertionError(f"serve {k}: the fresh process "
                                      f"differs")
             loaded[k]["fresh"] = fresh[k]
+
+        # (e) every other family, batch 1: its export child has loaded
+        # the artifact and built its in-process graph; the children make
+        # their first calls at once, then profile a replay one at a time
+        # while the others wait
+        families = {}
+        for name in SERVE_FAMILIES:
+            _tell(procs[name], "go")
+        out = {name: ready[name] + _read_until(procs[name], HOLD_CALLED, name)
+               for name in SERVE_FAMILIES}
+        for name in SERVE_FAMILIES:
+            _tell(procs[name], "profile")
+            out[name] += _read_until(procs[name], HOLD_DONE, name)
+        for name in SERVE_FAMILIES:
+            proc = procs.pop(name)
+            proc.stdin.close()
+            out[name] += proc.stdout.read()
+            if proc.wait() != 0:
+                raise AssertionError(f"serve {name}: exit {proc.returncode}"
+                                     f"\n{out[name][-4000:]}")
+            info = _exported(out[name], name, path(name))
+            lines = out[name].splitlines()
+            print("\n".join(line for line in lines
+                            if line.startswith(("serve ", "profiler:"))
+                            and not line.startswith((HOLD_CALLED,
+                                                     HOLD_DONE))))
+            done, = [line for line in lines if line.startswith(HOLD_DONE)]
+            info.update(json.loads(done[len(HOLD_DONE):]))
+            families[name] = info
+        marks["family holds"] = time.monotonic() - t_phase
+        print(f"serve: seconds into the phase at the end of each part "
+              f"{marks}")
+        print(f"serve gn_int8: the int8 artifact {families['gn_int8']['bytes']}"
+              f" bytes against the bf16 GN graph's "
+              f"{families['gn_perspective']['bytes']} (the perspective net's "
+              f"weights as int8 codes)")
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -2955,8 +3488,8 @@ class Trainers:
     """Phase train's ``train_cli`` runs in child processes: the zoo recipe
     with its teacher for 3 steps on --synth, and for 4 steps on the file
     dataset (written here on the card) with --augment --corrupt
-    --eval-every 2 --trace.  Started when phase serve begins waiting on
-    its exports (:meth:`start`), awaited before its daemon's burst
+    --eval-every 2 --trace.  Started before phase cli-e2e (:meth:`start`),
+    awaited when phase serve begins, before its profiled checks
     (:meth:`wait`), checked in phase train; each child's output goes to a
     file in ``root``."""
 
@@ -3003,8 +3536,8 @@ class Trainers:
                 proc.kill()
                 proc.wait()
         if self.procs:
-            print(f"train: both train_cli children ended "
-                  f"{time.monotonic() - self.t0:.2f} s after their start",
+            print(f"train: both train_cli children have ended (awaited "
+                  f"{time.monotonic() - self.t0:.2f} s after their start)",
                   flush=True)
 
     def output(self, name):
@@ -3183,9 +3716,27 @@ def _train_evaluate():
             bad["corrupt"] or not np.isfinite(bad["rmse"]):
         raise AssertionError(f"evaluate --corrupt: {bad_launches} groupnorm "
                              f"launches, record {bad}")
+    from panodepth_torch.kernels import qconv as kq
+
+    kq.LAUNCHES = 0
+    i8 = peval.evaluate(GN_PERSP_CKPT, count=16, int8=True)
+    torch.cuda.synchronize()
+    i8_launches = kq.LAUNCHES
+    fl = peval.evaluate(GN_PERSP_CKPT, count=16)
+    print(f"train evaluate --int8 zoo GN perspective net (16 v1 scenes, "
+          f"seed 77000): rmse {i8['rmse']!r}, delta1 {i8['delta1']!r}; "
+          f"without --int8 rmse {fl['rmse']!r}, delta1 {fl['delta1']!r}; "
+          f"{i8_launches} qconv launches")
+    if i8_launches != 4 * GN_INT8_QCONVS or not i8["int8"] or not \
+            np.isfinite(i8["rmse"]):
+        raise AssertionError(f"evaluate --int8: {i8_launches} qconv "
+                             f"launches, record {i8}")
     return dict(got, launches=launches, seconds=secs,
                 route_diff=diff, rmse_off=off,
-                corrupt=dict(bad, launches=bad_launches))
+                corrupt=dict(bad, launches=bad_launches),
+                gn_int8=dict(rmse=i8["rmse"], delta1=i8["delta1"],
+                             launches=i8_launches, float_rmse=fl["rmse"],
+                             float_delta1=fl["delta1"]))
 
 
 class _Parts:
@@ -3210,8 +3761,8 @@ def phase_train(cfg, scenes, merged0, persp, rgbs_u8, trainers):
     corruption on the card against the CPU's, ``evaluate`` on the zoo's
     FastPanoNet clean and with --corrupt, the merge CLI with --debug-nans,
     and ``trainers``' two ``train_cli`` runs (--synth; files with the
-    holdout and --trace; run during phase serve) with the e2e graph on
-    their weights."""
+    holdout and --trace; run beside phases cli-e2e and stage-a) with the
+    e2e graph on their weights."""
     from panodepth_torch.e2e import load_model_checkpoint
 
     parts = _Parts("train")
@@ -3272,40 +3823,48 @@ def main():
     with Phase("build"):
         phase_build()
     cfg_4096 = MergeConfig(layout_name="5fold_leres", out_width=4096)
-    with Phase("kernel"):
-        jac = phase_kernel(cfg, cfg_4096)
-    with Phase("merge"):
-        scenes = [make_scene(cfg, SEED + i) for i in range(2)]
-        merged0, merge_launches, warm_ms = phase_merge(cfg, scenes[0])
-    with Phase("cli"):
-        phase_cli(cfg, scenes, merged0)
-    with Phase("groupnorm"):
-        persp, _ = load_model_checkpoint(PERSP_CKPT)
-        base, _ = load_model_checkpoint(BASE_CKPT)
-        rgbs = [make_rgb(SEED + i, 2048) for i in range(2)]
-        gn = phase_groupnorm(base, rgbs)
-    with Phase("models"):
-        models = phase_models(persp, base, rgbs[0])
-    with Phase("e2e"):
-        e2e = phase_e2e(persp, base, rgbs)
-    with Phase("cli-e2e"):
-        phase_cli_e2e(rgbs, scenes[0]["gt"], e2e)
-    with Phase("stage-a"):
-        stage_a = phase_stage_a(cfg, scenes, rgbs)
-    with Phase("batched"):
-        batched = phase_batched(cfg, cfg_4096)
     serve_tmp = tempfile.mkdtemp(prefix="panodepth_smoke_serve_")
-    early = serve_exports_start(cfg, serve_tmp, SERVE_EARLY)
     trainers = Trainers()
+    # SliceNet's export, the longest (90-135 s), runs from here on, the
+    # other exports from phase stage-a on, each a child at background
+    # priority on one thread, so that phase families times its graphs
+    # beside none and phase serve finds the artifacts written
+    early = serve_exports_start(cfg, serve_tmp, SERVE_EARLY)
     try:
+        with Phase("kernel"):
+            jac = phase_kernel(cfg, cfg_4096)
+        with Phase("merge"):
+            scenes = [make_scene(cfg, SEED + i) for i in range(2)]
+            merged0, merge_launches, warm_ms = phase_merge(cfg, scenes[0])
+        with Phase("cli"):
+            analyzed = phase_cli(cfg, scenes, merged0)
+        with Phase("groupnorm"):
+            persp, _ = load_model_checkpoint(PERSP_CKPT)
+            base, _ = load_model_checkpoint(BASE_CKPT)
+            rgbs = [make_rgb(SEED + i, 2048) for i in range(2)]
+            gn = phase_groupnorm(base, rgbs)
+        with Phase("models"):
+            models = phase_models(persp, base, rgbs[0])
+        with Phase("e2e"):
+            e2e = phase_e2e(persp, base, rgbs)
+        # phase train's two train_cli children run beside phases cli-e2e
+        # and stage-a, which profile nothing (~20 s), and are awaited when
+        # phase serve begins, before its profiled checks
+        trainers.start()
+        with Phase("cli-e2e"):
+            phase_cli_e2e(rgbs, scenes[0]["gt"], e2e)
+        early.update(serve_exports_start(cfg, serve_tmp, SERVE_EXPORTS))
+        with Phase("stage-a"):
+            stage_a = phase_stage_a(cfg, scenes, rgbs)
+        with Phase("batched"):
+            batched = phase_batched(cfg, cfg_4096)
         with Phase("graphs"):
             graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs,
                                   e2e)
         with Phase("families"):
-            early.update(serve_exports_start(cfg, serve_tmp,
-                                             SERVE_WITH_FAMILIES))
             families = phase_families(persp, base, rgbs)
-            phase_families_cli(rgbs)
+            families["gn_int8"]["cli_launches"] = phase_families_cli(
+                rgbs, families["gn_int8"].pop("graph"))
         with Phase("serve"):
             served = phase_serve(cfg, scenes, persp, base, rgbs, serve_tmp,
                                  early, trainers)
@@ -3320,6 +3879,7 @@ def main():
         shutil.rmtree(serve_tmp, ignore_errors=True)
         trainers.close()
 
+    int8 = families["gn_int8"]
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
         replaces="panodepth/kernels/jacobi.py:98",
@@ -3366,11 +3926,31 @@ def main():
                 "group_norm"]),
         families={k: dict(v["groupnorm"], e2e_ms_per_pano=v["e2e"][
             "ms_per_pano"], e2e_idle_share=v["e2e"]["idle_share"])
-            for k, v in families.items()})]
+            for k, v in families.items() if "groupnorm" in v}), dict(
+        name="qconv", route="cuda", source="panodepth_torch/csrc/qconv.cu",
+        # not a TPU kernel: the port's own kernel for XLA's int8 conv
+        replaces="panodepth/models/perspective.py:68",
+        launches=int8["e2e"]["launches"]["qconv"],
+        max_abs_err=int8["qconv"]["max_abs_err"], ms=int8["qconv"]["ms"],
+        plain_ms=int8["qconv"]["plain_ms"],
+        bound_ms=int8["qconv"]["bound_ms"],
+        bound_by=int8["qconv"]["bound_by"],
+        library_ms=int8["qconv"]["library_ms"],
+        bf16_conv_ms=int8["qconv"]["bf16_conv_ms"],
+        device_ms=int8["qconv"]["device_ms"],
+        calls_per_forward=int8["qconv"]["calls"],
+        device_ms_in_e2e_graph=int8["e2e"]["qconv_graph_ms"],
+        launches_by_path=dict(
+            e2e_gn_int8=int8["e2e"]["launches"]["qconv"],
+            cli_int8=int8["cli_launches"],
+            serve_gn_int8=served["families"]["gn_int8"]["launches"]["qconv"],
+            evaluate_int8=trained["evaluate"]["gn_int8"]["launches"]),
+        shapes=int8["qconv"]["shapes"])]
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
-          f"stage A: {stage_a!r}; graphs: {graphs!r}; serve: {served!r}; "
+          f"stage A: {stage_a!r}; graphs: {graphs!r}; analyze: "
+          f"{analyzed!r}; int8: {int8!r}; serve: {served!r}; "
           f"train: {trained!r}; card: {smi}")
     print(f"chip_smoke wall time: {time.monotonic() - t_start:.1f} s")
     print(smi)

@@ -21,8 +21,9 @@ on the extracted views and, with ``--baseline-ckpt``, the baseline CNN
 (else the baseline files of the ``baseline`` folder), then registration
 and fusion.  Every zoo checkpoint runs: ``--persp-ckpt`` takes the NF
 (``zoo/perspective_*``) or the GN (``zoo/gn/perspective_*``) perspective
-net, ``--baseline-ckpt`` FastPanoNet (``zoo/fastpano_*``), the UniFuse-
-class net (``zoo/panoramic_*``), HoHoNet (``zoo/hohonet_*``), BiFuse
+net (``--persp-int8``: the GN net as the int8 graph), ``--baseline-ckpt``
+FastPanoNet (``zoo/fastpano_*``), the UniFuse-class net
+(``zoo/panoramic_*``), HoHoNet (``zoo/hohonet_*``), BiFuse
 (``zoo/bifuse_*``) or SliceNet (``zoo/slicenet_*``).
 Counterpart of ``panodepth/cli.py``; what is not ported yet is refused,
 never ignored.
@@ -40,11 +41,10 @@ from .kernels.jacobi import JACOBI_KINDS
 _NOT_PORTED = {
     "latency": "--latency (the view-parallel single-request graph)",
     "latency_halo": "--latency-halo (the view-parallel single-request graph)",
-    "persp_int8": "--persp-int8 (the int8 perspective graph, GN checkpoints)",
 }
 # flags that only the model mode takes
-_MODEL_MODE = ("baseline_ckpt", "view_width", "base_width", "infer_norm",
-               "extract_dtype", "p99")
+_MODEL_MODE = ("persp_int8", "baseline_ckpt", "view_width", "base_width",
+               "infer_norm", "extract_dtype", "p99")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,6 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(any zoo family: fastpano, panoramic, hohonet, "
                         "bifuse, slicenet) instead of reading baseline "
                         "files")
+    p.add_argument("--persp-int8", action="store_true", default=None,
+                   help="model mode: run the perspective CNN as the int8 "
+                        "post-training-quantized graph (per-channel int8 "
+                        "weights, per-image activation codes, int8 convs "
+                        "with int32 sums: the qconv kernel on the card); "
+                        "GN perspective checkpoints only")
     p.add_argument("--view-width", type=int, default=None,
                    help="model mode: perspective view width (default: the "
                         "checkpoint's training view_size)")
@@ -200,6 +206,7 @@ def _run(args, cfg) -> None:
             profile=args.profile, batch_size=args.batch_size,
             stream=args.stream, jacobi=args.jacobi,
             extract_dtype=args.extract_dtype or "auto",
+            persp_int8=bool(args.persp_int8),
             infer_norm=args.infer_norm or "auto",
             base_width=args.base_width, device=args.device,
         )

@@ -13,10 +13,11 @@ device with no pixels leaving it between stages:
 
 The baseline CNN is any zoo family (FastPanoNet, the UniFuse-class
 PanoBaselineNet, HorizonDepthNet, BiFuseNet, SliceNet), the perspective
-CNN NFPerspectiveNet or the GN PerspectiveDepthNet; the baseline may
+CNN NFPerspectiveNet or the GN PerspectiveDepthNet (or its int8 graph,
+``load_model_checkpoint(quantize=True)``); the baseline may
 instead come from files (the reference's form).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the card the
-GroupNorms and the Jacobi run their CUDA kernels.
+GroupNorms, the int8 convs and the Jacobi run their CUDA kernels.
 """
 
 from __future__ import annotations
@@ -37,9 +38,12 @@ from .config import MergeConfig
 from .fusion import build_fusion_plan, fuse_batched
 from .kernels import groupnorm as kgroupnorm
 from .kernels import jacobi as kjacobi
+from .kernels import qconv as kqconv
 from .models import norm as pnorm
 from .models import weights
+from .models.layers import set_qconv_route
 from .models.perspective import predict_depth01
+from .models.quantize import quantize_perspective
 from .ops.projection import extract_group, view_groups
 from .ops.resize import resize_bilinear, resize_bilinear_nhwc
 from .pipeline import (_as01, _double_buffered, _host_sync, _runs,
@@ -98,21 +102,28 @@ def full_pipeline(rgb, persp_model, base_model=None, baseline=None,
 
 
 def load_model_checkpoint(ckpt_path: str, norm_dtype=None, device="cuda",
-                          dtype=torch.bfloat16):
+                          dtype=torch.bfloat16, quantize: bool = False):
     """A net and its architecture dict from a ``*.params.npz`` checkpoint and
     its ``<model>.config.json`` sidecar (``models/weights.py``).
 
     ``norm_dtype`` is the GroupNorm output type (f32 when None, as the JAX
     package runs off the TPU); ``dtype`` the conv compute type (bf16, as
-    in JAX).  Every kind of the JAX loader is built (``weights.build_model``);
-    the int8 graph (JAX's ``quantize=True``) is not ported.  The net is
-    for inference: in eval mode, no parameter requiring grad (a net to
-    train comes from ``weights.build_model``).
+    in JAX).  Every kind of the JAX loader is built (``weights.build_model``).
+    ``quantize`` (GN perspective checkpoints only, as in JAX) returns the
+    int8 graph: the trained convs quantized by ``models/quantize.py``.  The
+    net is for inference: in eval mode, no parameter requiring grad (a net
+    to train comes from ``weights.build_model``).
     """
     arch = weights.read_arch(ckpt_path)
+    kind, variant = arch["model"], arch.get("variant", "gn")
+    if quantize and not (kind == "perspective" and variant == "gn"):
+        raise ValueError("int8 PTQ supports GN perspective checkpoints "
+                         f"only, got {kind}/{variant}")
     model = weights.build_model(arch, dtype=dtype,
                                 norm_dtype=norm_dtype or torch.float32)
     weights.load_params(model, weights.read_params_npz(ckpt_path))
+    if quantize:
+        model = quantize_perspective(model)
     model.requires_grad_(False)
     return model.to(resolve_device(device)).eval(), arch
 
@@ -120,7 +131,8 @@ def load_model_checkpoint(ckpt_path: str, norm_dtype=None, device="cuda",
 def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
                       base_model=None, base_w: int = 512,
                       extract_dtype: str = "auto", jacobi: str = "auto",
-                      groupnorm: str = "auto", device="cuda"):
+                      groupnorm: str = "auto", qconv: str = "auto",
+                      device="cuda"):
     """Batched e2e stages over (B, H, W, 3) RGB stacks (plus a (B, h, w)
     baseline stack when ``base_model`` is None).  Returns
     ``(full, models_stage, fuse_stage)``, each a ``graphs.Graphed``:
@@ -143,13 +155,15 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     no host time.
 
     The nets are moved to ``device``; ``groupnorm`` is the route of both
-    nets' GroupNorms and ``jacobi`` that of the relaxation (``auto``: the
-    CUDA kernels on the card, the plain versions on the CPU).
+    nets' GroupNorms, ``qconv`` that of the int8 perspective graph's convs
+    and ``jacobi`` that of the relaxation (``auto``: the CUDA kernels on the
+    card, the plain versions on the CPU).
     """
     _resolve_extract_dtype(extract_dtype)
     dev = resolve_device(device)
     relax = kjacobi.resolve(jacobi)
     kgroupnorm.resolve(groupnorm)
+    kqconv.resolve(qconv)
     persp_model = persp_model.to(dev)
     if base_model is not None:
         base_model = base_model.to(dev)
@@ -171,8 +185,8 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         nh, nw = _round32(h), _round32(w)
         if (nh, nw) != (h, w):
             views = resize_bilinear_nhwc(views, (nh, nw))
-        depths = predict_depth01(pnorm.set_route(persp_model, groupnorm),
-                                 views)
+        net = set_qconv_route(pnorm.set_route(persp_model, groupnorm), qconv)
+        depths = predict_depth01(net, views)
         if (nh, nw) != (h, w):
             depths = resize_bilinear(depths, (h, w))
         return depths
@@ -228,7 +242,8 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                   profile: bool = False, batch_size: int = 1,
                   stream: str = "auto", jacobi: str = "auto",
                   extract_dtype: str = "auto", infer_norm: str = "auto",
-                  base_width=None, log=print, device="cuda"):
+                  persp_int8: bool = False, base_width=None, log=print,
+                  device="cuda"):
     """The model-mode batch: RGB -> models -> registration -> fusion.
 
     The perspective checkpoint is mandatory; the baseline comes from a
@@ -247,8 +262,9 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
     device at their own width (uint8 RGB, uint16 baselines) and normalize
     there; "auto" is off, the JAX package's choice off the TPU.
     ``infer_norm`` is the GroupNorm output type: ``auto`` is f32, as the
-    JAX package runs off the TPU, or ``f32`` / ``bf16``.  Returns the
-    metrics of the gt-scored panoramas.
+    JAX package runs off the TPU, or ``f32`` / ``bf16``.  ``persp_int8``
+    runs the perspective CNN as the int8 graph (GN checkpoints only).
+    Returns the metrics of the gt-scored panoramas.
     """
     if infer_norm not in ("auto", "f32", "bf16"):
         raise ValueError(f"infer_norm must be auto, f32 or bf16, "
@@ -259,8 +275,8 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
         raise ValueError(f"batch_size must be >= 1, got {batch_size}")
     dev = resolve_device(device)
     norm_dtype = torch.bfloat16 if infer_norm == "bf16" else None
-    persp_model, persp_arch = load_model_checkpoint(persp_ckpt, norm_dtype,
-                                                    device=dev)
+    persp_model, persp_arch = load_model_checkpoint(
+        persp_ckpt, norm_dtype, device=dev, quantize=persp_int8)
     if view_width is None:
         # the perspective CNN's training resolution (zoo/README.md)
         view_width = persp_arch.get("view_size", 512)

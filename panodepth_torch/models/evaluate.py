@@ -1,7 +1,7 @@
 """Held-out evaluation of a trained checkpoint on procedural scenes.
 
 ``python -m panodepth_torch.models.evaluate <ckpt> [--count N] [--seed S]
-[--corrupt]``
+[--corrupt] [--int8]``
 
 Counterpart of ``panodepth/models/evaluate.py``: renders held-out scenes
 (seed 77 000 by default, disjoint from training's), runs the checkpoint
@@ -12,7 +12,9 @@ pipeline's metrics (``metrics.error_metrics`` over the whole sphere,
 Depth.cpp:933-947).  ``--corrupt`` first degrades the rendered RGB with
 the fixed mid-severity camera-pipeline corruption
 (``ops/corrupt.eval_corruption``), the depth staying exact, so the clean
-against corrupted delta measures robustness.  Prints one JSON line: the
+against corrupted delta measures robustness.  ``--int8`` evaluates the int8
+graph of a GN perspective checkpoint (``models/quantize.py``; its convs
+take the qconv kernel on the card).  Prints one JSON line: the
 mean metrics and the RMSE of the constant predictor (each scene's mean
 depth) as a floor.
 """
@@ -25,20 +27,16 @@ import json
 import numpy as np
 import torch
 
-# JAX options that come with later work, refused with where they stand
-_NOT_PORTED = {
-    "int8": "--int8 (the int8 graph, models/quantize.py; ROADMAP Queue 1 "
-            "item 7)",
-}
-
 
 def evaluate(ckpt_path: str, count: int = 16, seed: int = 77_000,
              align_way: int = 1, batch: int = 4, scene_version="v1",
-             corrupt: bool = False, device="cuda", groupnorm: str = "auto"):
+             corrupt: bool = False, int8: bool = False, device="cuda",
+             groupnorm: str = "auto"):
     """The mean metrics of ``count`` held-out scenes, as a dict; with
     ``corrupt`` on the RGB degraded by ``eval_corruption`` (its noise drawn
     on the device from seed 0 for each batch, as JAX draws it from
-    ``PRNGKey(0)``)."""
+    ``PRNGKey(0)``); with ``int8`` of the checkpoint's int8 graph.
+    ``groupnorm`` is the GroupNorms' route."""
     from .. import metrics as pmetrics
     from .. import synth
     from ..e2e import load_model_checkpoint
@@ -47,7 +45,7 @@ def evaluate(ckpt_path: str, count: int = 16, seed: int = 77_000,
     from . import norm as pnorm
 
     dev = resolve_device(device)
-    model, arch = load_model_checkpoint(ckpt_path, device=dev)
+    model, arch = load_model_checkpoint(ckpt_path, device=dev, quantize=int8)
     pnorm.set_route(model, groupnorm)
     kind = arch["model"]
     rng = np.random.RandomState(seed)
@@ -87,7 +85,7 @@ def evaluate(ckpt_path: str, count: int = 16, seed: int = 77_000,
 
     agg = {k: float(np.mean([r[k] for r in recs])) for k in recs[0]}
     agg.update(model=kind, ckpt=ckpt_path, count=count, align_way=align_way,
-               scenes=str(scene_version), corrupt=corrupt, int8=False)
+               scenes=str(scene_version), corrupt=corrupt, int8=int8)
     return agg
 
 
@@ -105,18 +103,16 @@ def main(argv=None) -> int:
                         "mid-severity camera-pipeline corruption (exposure, "
                         "noise, JPEG q40) before prediction; the depth stays "
                         "exact")
+    p.add_argument("--int8", action="store_true",
+                   help="evaluate the int8 post-training-quantized graph "
+                        "(models/quantize.py; GN perspective checkpoints "
+                        "only)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    late = p.add_argument_group("not ported yet (refused)")
-    for name in _NOT_PORTED:
-        late.add_argument("--" + name, action="store_true")
     args = p.parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise SystemExit(f"panodepth_torch.models.evaluate: {what} is "
-                             f"not ported yet")
     print(json.dumps(evaluate(args.ckpt, args.count, args.seed,
                               args.align_way, scene_version=args.scenes,
-                              corrupt=args.corrupt, device=args.device)))
+                              corrupt=args.corrupt, int8=args.int8,
+                              device=args.device)))
     return 0
 
 

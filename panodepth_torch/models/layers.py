@@ -1,6 +1,6 @@
 """Flax's layers as the JAX nets use them: ``nn.Conv`` (in NCHW),
 ``nn.Dense``, ``nn.LayerNorm``, ``nn.MultiHeadDotProductAttention``,
-``nn.GRUCell`` and ``nn.gelu``.
+``nn.GRUCell`` and ``nn.gelu``; and the int8 graph's ``QConv``.
 
 The port's nets keep flax's parameter names (``kernel``, ``bias``) and
 submodule names (``Conv_0``, ``Dense_1``, ...), so a checkpoint maps onto
@@ -38,6 +38,7 @@ from torch import nn
 from torch._subclasses import fake_tensor
 
 from .. import graphs
+from ..kernels import qconv as kqconv
 
 Pads = Union[str, Sequence[Tuple[int, int]]]
 
@@ -169,6 +170,69 @@ class Conv(Derived):
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y
+
+
+class QConv(Derived):
+    """``panodepth.models.perspective.QConv``: the int8 post-training
+    quantized conv of the int8 perspective graph, inference only.
+
+    ``kernel_q`` holds int8 weight codes (OIHW) and ``scale`` their f32
+    per-output-channel scales (made by ``models/quantize.py``); both, and
+    the f32 ``bias``, are fixed: no parameter requires grad.  Per call the
+    activation is quantized per image (``kernels.qconv.quantize_activation``,
+    plain PyTorch ops, as JAX leaves it to plain ``jnp``) and written NHWC;
+    the int8 conv with int32 sums and the scaling epilogue run in
+    ``route``'s function (``kernels/qconv.resolve``: ``auto`` the CUDA
+    kernel on the card, the plain twin on the CPU), with lax's SAME pads.
+    The kernel's layout of the weights is a derived tensor, made once and
+    held like the other convs' casts."""
+
+    def __init__(self, cin: int, features: int, kernel=(3, 3), strides=(1, 1),
+                 use_bias: bool = True, dtype=torch.bfloat16,
+                 route: str = "auto"):
+        super().__init__()
+        kh, kw = kernel
+        self.strides = tuple(strides)
+        self.dtype = dtype
+        self.route = route
+        fixed = lambda t: nn.Parameter(t, requires_grad=False)
+        self.kernel_q = fixed(torch.zeros(features, cin, kh, kw,
+                                          dtype=torch.int8))
+        self.scale = fixed(torch.ones(features))
+        self.bias = fixed(torch.zeros(features)) if use_bias else None
+
+    def init_flax_(self, generator=None):
+        """flax's init of the quantized tree: zero codes, unit scales, zero
+        bias (real values come from a float net, ``models/quantize.py``)."""
+        with torch.no_grad():
+            self.kernel_q.zero_()
+            self.scale.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def weight(self):
+        """The codes as the kernel reads them (``kernels.qconv.
+        prepare_weight``)."""
+        return self.derived(lambda: kqconv.prepare_weight(self.kernel_q),
+                            self.kernel_q)
+
+    def forward(self, x):
+        kh, kw = self.kernel_q.shape[2:]
+        pads = (same_pads(x.shape[2], kh, self.strides[0]),
+                same_pads(x.shape[3], kw, self.strides[1]))
+        xq, sx = kqconv.quantize_activation(x)
+        return kqconv.resolve(self.route)(
+            kqconv.to_nhwc(xq), self.weight(), sx, self.scale, self.bias,
+            (kh, kw), self.strides, pads, self.dtype)
+
+
+def set_qconv_route(module: nn.Module, route: str) -> nn.Module:
+    """Set ``route`` on every QConv inside ``module``; returns it."""
+    kqconv.resolve(route)  # refuse an unknown route here
+    for m in module.modules():
+        if isinstance(m, QConv):
+            m.route = route
+    return module
 
 
 class Dense(nn.Module):

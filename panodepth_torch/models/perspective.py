@@ -9,8 +9,11 @@ of the reference's external LeReS/MiDaS CNN (``Main.cpp:465-474``), a
 ResNet encoder with a RefineNet decoder.  Both take (B, H, W, 3) RGB in
 [0, 1], H and W multiples of 32, and return (B, H, W) positive values;
 inside, activations are NCHW.  ``ResBlock`` is also the encoder block of
-every panoramic family but FastPanoNet.  The int8 graph
-(``quantized=True``, ``QConv``) is not ported.
+every panoramic family but FastPanoNet.  ``quantized=True`` builds the
+int8 graph of the GN net (JAX's ``quantized=True``): every conv but the
+output head a ``layers.QConv``, named as flax names it (``QConv_i``, the
+head ``Conv_0``); its weights come from a float net through
+``models/quantize.py``.
 
 The numerics are the JAX package's, including where they are odd:
 
@@ -36,8 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import resize_bilinear, upsample2_nearest
-from .layers import (Conv, Derived, same_pads, softplus, train_layout,
-                     variance_scaling_)
+from .layers import (Conv, Derived, QConv, same_pads, softplus,
+                     train_layout, variance_scaling_)
 from .norm import GroupNorm
 
 
@@ -53,33 +56,50 @@ def _groups(channels: int, target: int = 32) -> int:
     return math.gcd(channels, target)
 
 
+def _conv_prefix(quantized: bool) -> str:
+    """flax's name of a block's convs: ``QConv_i`` in the int8 graph."""
+    return "QConv_" if quantized else "Conv_"
+
+
+def _conv(quantized: bool, *args, **kwargs):
+    """A ``QConv`` in the int8 graph, else a ``Conv``."""
+    return (QConv if quantized else Conv)(*args, **kwargs)
+
+
 class ResBlock(nn.Module):
     """Conv, norm + ReLU, conv, norm, a 1x1 conv + norm shortcut on a
     transition (stride or width change), ReLU of the sum; lax SAME
-    padding.  The norms return ``norm_dtype``."""
+    padding.  The norms return ``norm_dtype``; ``quantized`` makes the
+    convs int8 ``QConv``s."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 dtype=torch.bfloat16, norm_dtype=torch.float32):
+                 dtype=torch.bfloat16, norm_dtype=torch.float32,
+                 quantized: bool = False):
         super().__init__()
         g = _groups(features)
         s = (stride, stride)
-        self.Conv_0 = Conv(cin, features, (3, 3), s, use_bias=False,
-                           dtype=dtype)
+        c = self._prefix = _conv_prefix(quantized)
+        self.add_module(c + "0", _conv(quantized, cin, features, (3, 3), s,
+                                       use_bias=False, dtype=dtype))
         self.GroupNorm_0 = GroupNorm(features, g, fuse_relu=True,
                                      dtype=norm_dtype)
-        self.Conv_1 = Conv(features, features, use_bias=False, dtype=dtype)
+        self.add_module(c + "1", _conv(quantized, features, features,
+                                       use_bias=False, dtype=dtype))
         self.GroupNorm_1 = GroupNorm(features, g, dtype=norm_dtype)
         self.transition = cin != features or stride != 1
         if self.transition:
-            self.Conv_2 = Conv(cin, features, (1, 1), s, use_bias=False,
-                               dtype=dtype)
+            self.add_module(c + "2", _conv(quantized, cin, features, (1, 1),
+                                           s, use_bias=False, dtype=dtype))
             self.GroupNorm_2 = GroupNorm(features, g, dtype=norm_dtype)
 
+    def conv(self, i: int) -> nn.Module:
+        return getattr(self, self._prefix + str(i))
+
     def forward(self, x):
-        y = self.GroupNorm_0(self.Conv_0(x))
-        y = self.GroupNorm_1(self.Conv_1(y))
+        y = self.GroupNorm_0(self.conv(0)(x))
+        y = self.GroupNorm_1(self.conv(1)(y))
         if self.transition:
-            x = self.GroupNorm_2(self.Conv_2(x))
+            x = self.GroupNorm_2(self.conv(2)(x))
         return torch.relu(y + x)
 
 
@@ -88,38 +108,49 @@ class FusionBlock(nn.Module):
     added, then a ResBlock."""
 
     def __init__(self, cin: int, features: int, skip: Optional[int],
-                 dtype=torch.bfloat16, norm_dtype=torch.float32):
+                 dtype=torch.bfloat16, norm_dtype=torch.float32,
+                 quantized: bool = False):
         super().__init__()
-        self.Conv_0 = Conv(cin, features, dtype=dtype)
-        self.Conv_1 = (Conv(skip, features, use_bias=False, dtype=dtype)
-                       if skip is not None else None)
+        c = self._prefix = _conv_prefix(quantized)
+        self.add_module(c + "0", _conv(quantized, cin, features, dtype=dtype))
+        self.has_skip = skip is not None
+        if self.has_skip:
+            self.add_module(c + "1", _conv(quantized, skip, features,
+                                           use_bias=False, dtype=dtype))
         self.ResBlock_0 = ResBlock(features, features, dtype=dtype,
-                                   norm_dtype=norm_dtype)
+                                   norm_dtype=norm_dtype, quantized=quantized)
+
+    def conv(self, i: int) -> nn.Module:
+        return getattr(self, self._prefix + str(i))
 
     def forward(self, x, skip=None):
-        x = self.Conv_0(upsample2_nearest(x))
+        x = self.conv(0)(upsample2_nearest(x))
         if skip is not None:
-            x = x + self.Conv_1(skip)
+            x = x + self.conv(1)(skip)
         return self.ResBlock_0(x)
 
 
 class PerspectiveDepthNet(nn.Module):
     """(B, H, W, 3) RGB in [0, 1] -> (B, H, W) positive depth-like values;
-    29 GroupNorms at the default widths."""
+    29 GroupNorms at the default widths, and with ``quantized`` 39 int8
+    convs (every conv but the f32 output head)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  widths: Sequence[int] = (64, 128, 256, 512),
                  decoder_width: int = 128, dtype=torch.bfloat16,
                  norm_dtype=torch.float32, quantized: bool = False):
         super().__init__()
-        if quantized:
-            raise ValueError("PerspectiveDepthNet(quantized=True), the int8 "
-                             "graph, is not ported yet")
+        # what models/quantize.py builds the int8 twin from
+        self.config = dict(stage_sizes=tuple(stage_sizes),
+                           widths=tuple(widths), decoder_width=decoder_width,
+                           dtype=dtype, norm_dtype=norm_dtype)
+        self.quantized = quantized
         self.dtype = dtype
         self.stage_sizes = tuple(stage_sizes)
+        c = self._prefix = _conv_prefix(quantized)
         stem = widths[0] // 2
-        self.Conv_0 = Conv(3, stem, (7, 7), (2, 2), use_bias=False,
-                           dtype=dtype)
+        self.add_module(c + "0", _conv(quantized, 3, stem, (7, 7), (2, 2),
+                                       use_bias=False, dtype=dtype))
         self.GroupNorm_0 = GroupNorm(stem, _groups(stem), fuse_relu=True,
                                      dtype=norm_dtype)
         cin, k = stem, 0
@@ -127,37 +158,48 @@ class PerspectiveDepthNet(nn.Module):
             for b in range(blocks):
                 self.add_module(f"ResBlock_{k}", ResBlock(
                     cin, width, stride=2 if b == 0 else 1, dtype=dtype,
-                    norm_dtype=norm_dtype))
+                    norm_dtype=norm_dtype, quantized=quantized))
                 cin, k = width, k + 1
-        self.Conv_1 = Conv(widths[-1], decoder_width, use_bias=False,
-                           dtype=dtype)
+        self.add_module(c + "1", _conv(quantized, widths[-1], decoder_width,
+                                       use_bias=False, dtype=dtype))
         skips = list(reversed(widths[:-1])) + [None]
         for k, skip in enumerate(skips):
             self.add_module(f"FusionBlock_{k}", FusionBlock(
                 decoder_width, decoder_width, skip, dtype=dtype,
-                norm_dtype=norm_dtype))
-        self.Conv_2 = Conv(decoder_width, decoder_width // 2, dtype=dtype)
-        self.Conv_3 = Conv(decoder_width // 2, 32, dtype=dtype)
-        self.Conv_4 = Conv(32, 1, (1, 1), dtype=torch.float32,
-                           bias_init=HEAD_BIAS)
+                norm_dtype=norm_dtype, quantized=quantized))
+        self.add_module(c + "2", _conv(quantized, decoder_width,
+                                       decoder_width // 2, dtype=dtype))
+        self.add_module(c + "3", _conv(quantized, decoder_width // 2, 32,
+                                       dtype=dtype))
+        # the output head stays an f32 Conv; flax numbers it after the
+        # other Convs of the net, so it is Conv_0 in the int8 graph
+        self.add_module("Conv_0" if quantized else "Conv_4", Conv(
+            32, 1, (1, 1), dtype=torch.float32, bias_init=HEAD_BIAS))
+
+    def conv(self, i: int) -> nn.Module:
+        return getattr(self, self._prefix + str(i))
+
+    @property
+    def head(self) -> nn.Module:
+        return self.Conv_0 if self.quantized else self.Conv_4
 
     def forward(self, rgb):
         x = rgb.permute(0, 3, 1, 2).to(self.dtype)
-        x = self.GroupNorm_0(self.Conv_0(x))
+        x = self.GroupNorm_0(self.conv(0)(x))
         skips, k = [], 0
         for blocks in self.stage_sizes:
             for _ in range(blocks):
                 x = getattr(self, f"ResBlock_{k}")(x)
                 k += 1
             skips.append(x)
-        y = self.Conv_1(skips[-1])
+        y = self.conv(1)(skips[-1])
         for k, skip in enumerate(list(reversed(skips[:-1])) + [None]):
             y = getattr(self, f"FusionBlock_{k}")(y, skip)
-        y = torch.relu(self.Conv_2(y))
+        y = torch.relu(self.conv(2)(y))
         h, w = y.shape[2:]
         y = resize_bilinear(y, (h * 2, w * 2))
-        y = torch.relu(self.Conv_3(y))
-        return softplus(self.Conv_4(y)[:, 0])
+        y = torch.relu(self.conv(3)(y))
+        return softplus(self.head(y)[:, 0])
 
 
 # relu gain: 1/sqrt(E[relu(z)^2]) for z ~ N(0,1) (NF-ResNets, Brock et

@@ -12,7 +12,8 @@ A ``*.params.npz`` checkpoint stores each flax parameter under its path
 patterns in ``uint16``; they widen exactly to f32 as ``u16 << 16``.  The
 port's nets keep flax's module and parameter names, so a path maps to the
 port's parameter ``CircResBlock_0.GroupNorm_1.scale`` mechanically; only
-kernels change layout: conv kernels flax HWIO -> OIHW, dense kernels flax
+kernels change layout: conv kernels (and the int8 graph's codes,
+``kernel_q``) flax HWIO -> OIHW, dense kernels flax
 (in, out) -> (out, in), and the attention's 3-D ``DenseGeneral`` kernels
 output axes first (``query``/``key``/``value`` (in, heads, dim) -> (heads,
 dim, in), ``out`` (heads, dim, out) -> (out, heads, dim)).  Loading fails
@@ -61,7 +62,7 @@ def to_port_layout(name: str, a: np.ndarray) -> np.ndarray:
     kernels (in, out) -> (out, in), attention kernels output axes first
     (the ``out`` projection contracts its first two axes, the others their
     first); everything else as it is."""
-    if name.endswith("kernel") and a.ndim == 4:
+    if name.endswith(("kernel", "kernel_q")) and a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
     if name.endswith("kernel") and a.ndim == 3:
         return np.ascontiguousarray(a.transpose(
@@ -81,7 +82,7 @@ def to_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
     """A port leaf in flax's layout, the inverse of :func:`to_port_layout`:
     conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out),
     attention kernels with their output axes last."""
-    if name.endswith("kernel") and a.ndim == 4:
+    if name.endswith(("kernel", "kernel_q")) and a.ndim == 4:
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     if name.endswith("kernel") and a.ndim == 3:
         return np.ascontiguousarray(a.transpose(
@@ -93,8 +94,10 @@ def to_flax_layout(name: str, a: np.ndarray) -> np.ndarray:
 
 def load_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     """Copy the flax leaves ``flat`` (as :func:`read_params_npz` returns
-    them) into ``model``'s parameters; raises unless the two match one to
-    one in names and shapes.  Returns ``model``."""
+    them, or a tree the JAX package quantized, its int8 codes included)
+    into ``model``'s parameters, each in the parameter's type; raises
+    unless the two match one to one in names and shapes.  Returns
+    ``model``."""
     params = dict(model.named_parameters())
     converted = {}
     for key, a in flat.items():
@@ -114,7 +117,8 @@ def load_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
             if tuple(p.shape) != a.shape:
                 raise ValueError(f"param {name}: checkpoint shape {a.shape} "
                                  f"!= model shape {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(a, np.float32)))
+            p.copy_(torch.from_numpy(np.array(
+                a, np.int8 if p.dtype == torch.int8 else np.float32)))
     return model
 
 

@@ -7,7 +7,8 @@ serving process loads an artifact once and calls it: the batched merge
 ``full``, the nets' weights baked in), traced by ``torch.export`` into an
 ``ExportedProgram`` and written by ``torch.export.save`` (a ``.pt2``).  The
 hand-written kernels are nodes of that program, the operators
-``panodepth_torch::jacobi`` and ``panodepth_torch::group_norm``
+``panodepth_torch::jacobi``, ``panodepth_torch::group_norm`` and, in the
+int8 perspective graph (``--persp-int8``), ``panodepth_torch::qconv``
 (``kernels/``); every device table and net weight the graph reads is a
 constant inside it, so the file is self-contained, but it runs only where
 this package is importable (it registers the operators), on the device
@@ -25,7 +26,8 @@ CLI (``--device cpu`` runs on the CPU, the plain versions in the graph)::
     python -m panodepth_torch.serve export-merge OUT.pt2 --batch 8 \\
         --emap-shape 512x1024 --pmap-shape 988x1024 [--out-width 2048]
     python -m panodepth_torch.serve export-e2e OUT.pt2 --batch 8 \\
-        --rgb-shape 1024x2048 --persp-ckpt ... --baseline-ckpt ...
+        --rgb-shape 1024x2048 --persp-ckpt ... --baseline-ckpt ... \\
+        [--persp-int8]
     python -m panodepth_torch.serve run OUT.pt2        # random inputs
     python -m panodepth_torch.serve describe OUT.pt2   # no execution
     python -m panodepth_torch.serve daemon OUT.pt2 --port 8765
@@ -50,10 +52,12 @@ from . import graphs
 from .config import MergeConfig
 from .kernels import groupnorm as kgroupnorm
 from .kernels import jacobi as kjacobi
+from .kernels import qconv as kqconv
 from .pipeline import resolve_device, true_f32
 
 # the operators of the hand-written kernels, as graph nodes name them
-KERNEL_OPS = (f"{kjacobi.OPS}::jacobi", f"{kgroupnorm.OPS}::group_norm")
+KERNEL_OPS = (f"{kjacobi.OPS}::jacobi", f"{kgroupnorm.OPS}::group_norm",
+              f"{kqconv.OPS}::qconv")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -209,19 +213,21 @@ def export_merge(path: str, cfg: MergeConfig, batch: int,
 
 def export_e2e(path: str, cfg: MergeConfig, batch: int, persp_ckpt: str,
                baseline_ckpt: str, rgb_shape=(1024, 2048),
-               view_width: Optional[int] = None,
+               view_width: Optional[int] = None, persp_int8: bool = False,
                groupnorm: str = "auto", jacobi: str = "auto", device="cuda"):
     """Export the batched e2e graph, u8 RGB (B, H, W, 3) -> (out_u16 (B, oh,
     ow), baselines (B, h, w)), with both zoo checkpoints' weights baked in
     (nets in bf16, norms out in f32, as the CLI runs them).  Every family
     that ``e2e.load_model_checkpoint`` builds is taken; the view width
     defaults to the perspective net's training size, the baseline width
-    to the baseline net's.
+    to the baseline net's.  ``persp_int8`` bakes the GN perspective net's
+    int8 graph in (its int8 codes, a quarter of the float weights' bytes).
     """
     from .e2e import build_batched_e2e, load_model_checkpoint
 
     dev = resolve_device(device)
-    persp, persp_arch = load_model_checkpoint(persp_ckpt, device=dev)
+    persp, persp_arch = load_model_checkpoint(persp_ckpt, device=dev,
+                                              quantize=persp_int8)
     base, base_arch = load_model_checkpoint(baseline_ckpt, device=dev)
     vw = view_width or persp_arch.get("view_size", 512)
     full, _, _ = build_batched_e2e(
@@ -234,7 +240,8 @@ def export_e2e(path: str, cfg: MergeConfig, batch: int, persp_ckpt: str,
                    dict(out_width=cfg.out_width, batch=batch,
                         layout=cfg.layout_name, view_width=vw,
                         persp=persp_arch.get("model"),
-                        baseline=base_arch.get("model"), jacobi=jacobi,
+                        baseline=base_arch.get("model"),
+                        persp_int8=persp_int8, jacobi=jacobi,
                         groupnorm=groupnorm), path)
 
 
@@ -287,7 +294,8 @@ def build_parser():
     pe.add_argument("--baseline-ckpt", required=True)
     pe.add_argument("--view-width", type=int, default=None)
     pe.add_argument("--persp-int8", action="store_true",
-                    help="not ported: refused")
+                    help="bake the GN perspective net's int8 graph "
+                         "(models/quantize.py) into the artifact")
 
     pr = sub.add_parser("run", help="call the artifact once on random "
                         "inputs and print the cold time")
@@ -321,10 +329,6 @@ def build_parser():
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd in ("export-merge", "export-e2e"):
-        if args.cmd == "export-e2e" and args.persp_int8:
-            raise SystemExit("panodepth_torch.serve: --persp-int8 (the int8 "
-                             "perspective graph) is not ported yet (ROADMAP "
-                             "Queue 1 item 6b)")
         cfg = MergeConfig(out_width=args.out_width, layout_name=args.layout)
         t0 = time.monotonic()
         if args.cmd == "export-merge":
@@ -337,7 +341,8 @@ def main(argv=None) -> int:
             program = export_e2e(
                 args.out, cfg, args.batch, args.persp_ckpt,
                 args.baseline_ckpt, rgb_shape=_parse_hw(args.rgb_shape),
-                view_width=args.view_width, device=args.device or "cuda")
+                view_width=args.view_width, persp_int8=args.persp_int8,
+                device=args.device or "cuda")
         print(f"[serve] wrote {args.out} (+.meta.json): "
               f"{os.path.getsize(args.out)} bytes, "
               f"{len(program.graph.nodes)} nodes, kernels "

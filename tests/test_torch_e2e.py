@@ -49,6 +49,11 @@ BASE = os.path.join(ROOT, "zoo", "fastpano_final.params.npz")
 D2R = math.pi / 180.0
 F32_BAR = (4, 0.5)
 BF16_BAR = (2048, 64.0)
+# the model-mode CLI's int8 files against JAX's int8 CLI: u16 max, mean
+# (measured 431 / 43.4 and 287 / 22.2; the bf16 graph of the same
+# checkpoint 1137 / 68.2 and 1663 / 120.9)
+INT8_CLI_BAR = (640, 56.0)
+GN_PERSP = os.path.join(ROOT, "zoo", "gn", "perspective_final.params.npz")
 
 # two views under 180 degrees (stage A's gnomonic limit), as test_e2e.py's
 FOVS = np.array([(25 * D2R, 175 * D2R, 30 * D2R, 150 * D2R),
@@ -261,7 +266,42 @@ def test_model_mode_refuses_what_is_not_ported(tmp_path, request, capsys,
     """What is not ported is refused by name; ``--stream on`` and
     ``--profile``, ported since, run and give the files of the run without
     them within 2 u16 (the CLI bar), the same metrics, and with
-    ``--profile`` the models / fuse split in the end line."""
+    ``--profile`` the models / fuse split in the end line.
+    ``--persp-int8``, ported since, runs the GN perspective checkpoint's
+    int8 graph: the files within ``INT8_CLI_BAR`` of the JAX CLI's with
+    the flag, and the bf16 graph of the same checkpoint outside it, the
+    metrics file written and the int8 graph's own output equal to the
+    file."""
+    if needle == "--persp-int8":
+        head, common, root = request.getfixturevalue("model_mode_scene")
+        int8 = [GN_PERSP if a == PERSP else a for a in common] + list(extra)
+        res = {k: str(tmp_path / f"res_{k}") for k in ("torch", "jax")}
+        assert tcli.main(head + [res["torch"]] + int8) == 0
+        jargs = [a for a in int8 if a not in ("--device", "cpu")]
+        assert jcli.main(head + [res["jax"]] + jargs
+                         + ["--platform", "cpu"]) == 0
+        tp, _ = te.load_model_checkpoint(GN_PERSP, device="cpu",
+                                         quantize=True)
+        tb, _ = te.load_model_checkpoint(BASE, device="cpu")
+        tf, _ = te.load_model_checkpoint(GN_PERSP, device="cpu")
+        full, floats = (te.build_batched_e2e(
+            net, tconfig.MergeConfig(layout_name="3fold", out_width=128),
+            view_width=64, base_model=tb, base_w=128, device="cpu")[0]
+            for net in (tp, tf))
+        for name in ("p0", "p1"):
+            got = tio.read_png(os.path.join(res["torch"], f"{name}.png"))
+            want = tio.read_png(os.path.join(res["jax"], f"{name}.png"))
+            dmax, dmean = _u16_diff(got, want)
+            assert got.shape == (64, 128) and dmax <= INT8_CLI_BAR[0] \
+                and dmean < INT8_CLI_BAR[1], (name, dmax, dmean)
+            rgb = torch.tensor(tio.load_image01(
+                str(root / "rgb" / f"{name}.png"))[None])
+            np.testing.assert_array_equal(got, full(rgb)[0][0].numpy())
+            fmax, fmean = _u16_diff(floats(rgb)[0][0].numpy(), want)
+            assert fmax > INT8_CLI_BAR[0] or fmean >= INT8_CLI_BAR[1], (
+                name, fmax, fmean)
+        assert os.path.isfile(os.path.join(res["torch"], "p0.aligned.txt"))
+        return
     if _RUNS.get(needle) == extra:
         head, common, root = request.getfixturevalue("model_mode_scene")
         res = root / f"res{needle.replace('-', '_')}"

@@ -275,8 +275,13 @@ def test_circular_bigru_matches_jax(mode, length):
                                  "slicenet", "perspective"])
 def test_nets_refuse_inputs_they_cannot_run(net):
     if net == "perspective":
-        with pytest.raises(ValueError, match="not ported yet"):
-            tpersp.PerspectiveDepthNet(quantized=True)
+        # the int8 graph (ported since) is made from a float GN net only
+        from panodepth_torch.models import quantize as tquant
+
+        twin = tpersp.PerspectiveDepthNet(quantized=True)
+        for other in (tpersp.NFPerspectiveNet(), twin):
+            with pytest.raises(ValueError, match="float GN"):
+                tquant.quantize_perspective(other)
         return
     tm = weights.build_model({"model": net, "pano_width": 64})
     with pytest.raises(ValueError, match="W % 32 == 0"):

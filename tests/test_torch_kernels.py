@@ -417,3 +417,168 @@ def test_cuda_operators_take_any_strides_and_export(cuda_device):
     assert kgn.LAUNCHES == 1 and kj.LAUNCHES == kj.launches_for(64, 32, 20)
     assert torch.equal(y, want)
     assert torch.equal(z, kj.cuda_jacobi(buf, tgt, cov, 20, 0.5, 1e-4))
+
+
+# --- the int8 conv (csrc/qconv.cu, kernels/qconv.py) ---
+
+
+def _qconv_case(n, h, w, cin, cout, k, stride, seed, device="cpu"):
+    """Codes, prepared weights, scales, bias and lax's SAME pads of one
+    int8 conv, made with numpy from ``seed``."""
+    from panodepth_torch.kernels import qconv as kq
+    from panodepth_torch.models.layers import same_pads
+
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.normal(0, 1, (n, cin, h, w)).astype(np.float32))
+    xq, sx = kq.quantize_activation(x.to(torch.bfloat16))
+    wq = torch.tensor(rng.randint(-127, 128, (cout, cin, k, k)).astype(
+        np.int8))
+    scale = torch.tensor(rng.uniform(1e-3, 1e-2, cout).astype(np.float32))
+    bias = torch.tensor(rng.normal(0, 0.5, cout).astype(np.float32))
+    pads = (same_pads(h, k, stride), same_pads(w, k, stride))
+    return tuple(t.to(device) for t in (
+        kq.to_nhwc(xq), kq.prepare_weight(wq), sx, scale, bias)) + (
+        (k, k), (stride, stride), pads)
+
+
+def test_qconv_plain_sums_are_exact_and_layouts_pad():
+    """The plain twin's float64 conv equals an int64 conv of the same codes
+    (stem-like 7x7/2 with 3 channels padded to 16; a 3x3/2 with lax's
+    asymmetric pads), and the layouts pad with zeros."""
+    from panodepth_torch.kernels import qconv as kq
+
+    for n, h, w, cin, cout, k, s in ((2, 16, 20, 3, 8, 7, 2),
+                                     (1, 10, 12, 24, 16, 3, 2)):
+        xq, wq, sx, scale, bias, kern, strides, pads = _qconv_case(
+            n, h, w, cin, cout, k, s, seed=cin)
+        assert xq.shape == (n, h, w, 16 * -(-cin // 16))
+        assert wq.shape[1] % 64 == 0 and not wq[:, k * k * xq.shape[3]:].any()
+        assert not xq[..., cin:].any()
+        sums = kq.qconv_sums_plain(xq, wq, kern, strides, pads)
+        x = np.pad(xq.numpy()[..., :cin].astype(np.int64),
+                   ((0, 0), pads[0], pads[1], (0, 0)))
+        wk = wq[:, :k * k * xq.shape[3]].reshape(cout, k, k, -1).numpy()[
+            ..., :cin].astype(np.int64)
+        ho, wo = sums.shape[2:]
+        want = np.zeros((n, cout, ho, wo), np.int64)
+        for r in range(k):
+            for c in range(k):
+                patch = x[:, r:r + s * ho:s, c:c + s * wo:s, :]
+                want += np.einsum("nhwi,oi->nohw", patch, wk[:, r, c, :])
+        np.testing.assert_array_equal(sums.numpy(), want)
+        y = kq.qconv_plain(xq, wq, sx, scale, bias, kern, strides, pads)
+        assert y.dtype == torch.bfloat16 and y.shape == sums.shape
+
+
+def test_qconv_auto_on_cpu_routes_to_plain_and_counts_no_launch():
+    from panodepth_torch.kernels import qconv as kq
+
+    case = _qconv_case(2, 8, 8, 16, 8, 3, 1, seed=1)
+    before = kq.LAUNCHES
+    got = kq.resolve("auto")(*case)
+    assert kq.LAUNCHES == before
+    assert torch.equal(got, kq.qconv_plain(*case))
+    assert kq.resolve("torch") is kq.qconv_plain
+    assert kq.resolve("kernel") is kq.cuda_qconv
+    with pytest.raises(ValueError, match="qconv route"):
+        kq.resolve("xla")
+    assert "qconv" in _build.SOURCES
+    assert _build.library_path("qconv").name.startswith("libqconv-")
+
+
+@pytest.mark.parametrize("bad", ["cpu_tensor", "f32_codes", "cin_16",
+                                 "k_64", "scale_shape", "strided"])
+def test_cuda_qconv_refuses_bad_arguments(bad):
+    from panodepth_torch.kernels import qconv as kq
+
+    on_card = bad != "cpu_tensor" and torch.cuda.is_available()
+    xq, wq, sx, scale, bias, kern, strides, pads = _qconv_case(
+        1, 8, 8, 16, 8, 3, 1, seed=2, device="cuda" if on_card else "cpu")
+    err = ValueError
+    if bad in ("cpu_tensor", "f32_codes"):
+        err = TypeError
+    if bad == "f32_codes":
+        xq = xq.float()
+    elif bad == "cin_16":
+        xq = xq[..., :8].contiguous()
+    elif bad == "k_64":
+        wq = wq[:, :32].contiguous()
+    elif bad == "scale_shape":
+        scale = scale[:4].contiguous()
+    elif bad == "strided":
+        xq = xq.transpose(1, 2)
+    if not on_card and bad != "cpu_tensor":
+        err = TypeError  # a CPU tensor is refused first
+    with pytest.raises(err):
+        kq.cuda_qconv(xq, wq, sx, scale, bias, kern, strides, pads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", [
+    (2, 64, 64, 3, 8, 7, 2), (2, 32, 32, 8, 16, 3, 2),
+    (2, 32, 32, 8, 16, 1, 2), (3, 17, 23, 40, 24, 3, 1),
+    (1, 9, 130, 16, 136, 3, 2)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_qconv_bit_equal_to_plain(cuda_device, n, h, w, cin, cout, k,
+                                       stride, out_dtype):
+    """The kernel's int32 sums and output against the plain twin's on the
+    same codes: bit-equal, with and without a bias, at odd sizes (pixels
+    and channels not multiples of the tile, stride 2 on odd sizes)."""
+    from panodepth_torch.kernels import qconv as kq
+
+    xq, wq, sx, scale, bias, kern, strides, pads = _qconv_case(
+        n, h, w, cin, cout, k, stride, seed=h + cout, device=cuda_device)
+    for b in (bias, None):
+        before = kq.LAUNCHES
+        y, acc = kq.cuda_qconv_sums(xq, wq, sx, scale, b, kern, strides,
+                                    pads, out_dtype)
+        y2 = kq.cuda_qconv(xq, wq, sx, scale, b, kern, strides, pads,
+                           out_dtype)
+        torch.cuda.synchronize()
+        assert kq.LAUNCHES == before + 2
+        assert torch.equal(acc, kq.qconv_sums_plain(xq, wq, kern, strides,
+                                                    pads))
+        want = kq.qconv_plain(xq, wq, sx, scale, b, kern, strides, pads,
+                              out_dtype)
+        assert torch.equal(y, want) and torch.equal(y2, want)
+
+
+@pytest.mark.cuda
+def test_cuda_qconv_small_net_shapes_bit_equal(cuda_device):
+    """Every QConv of a small int8 GN perspective net on its real inputs
+    (the kernel against the plain twin, sums and output), then the whole
+    net through the kernel against the plain route: bit-equal."""
+    from panodepth_torch.kernels import qconv as kq
+    from panodepth_torch.models import layers, quantize
+    from panodepth_torch.models.perspective import PerspectiveDepthNet
+
+    net = PerspectiveDepthNet(stage_sizes=(1, 1), widths=(16, 32),
+                              decoder_width=16)
+    layers.init_params(net, torch.Generator().manual_seed(0))
+    qnet = quantize.quantize_perspective(net.to(cuda_device))
+    rgb = torch.tensor(np.random.RandomState(0).rand(2, 64, 64, 3).astype(
+        np.float32), device=cuda_device)
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((mod, args[0].clone())))
+        for m in quantize.qconvs(qnet)]
+    with torch.no_grad():
+        kq.LAUNCHES = 0
+        got = qnet(rgb)
+        torch.cuda.synchronize()
+        assert kq.LAUNCHES == len(quantize.qconvs(qnet)) == 17
+        for h in hooks:
+            h.remove()
+        for m, x in calls:
+            xq, sx = kq.quantize_activation(x)
+            kh, kw = m.kernel_q.shape[2:]
+            pads = (layers.same_pads(x.shape[2], kh, m.strides[0]),
+                    layers.same_pads(x.shape[3], kw, m.strides[1]))
+            args = (kq.to_nhwc(xq), m.weight(), sx, m.scale, m.bias,
+                    (kh, kw), m.strides, pads, m.dtype)
+            y, acc = kq.cuda_qconv_sums(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, kq.qconv_sums_plain(*args[:2], *args[5:8]))
+            assert torch.equal(y, kq.qconv_plain(*args))
+        plain = layers.set_qconv_route(qnet, "torch")(rgb)
+        assert torch.equal(got, plain)

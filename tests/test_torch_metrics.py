@@ -37,8 +37,9 @@ def test_error_metrics_match_jax_and_oracle(align_way, cap_depth):
     ref = ref_error_emap(gt, given, align_way=align_way, cap_depth=cap_depth)
     # f32 sums in another order than XLA's: 1e-5 relative to JAX, except
     # after the closed-form fit of align_way=2, whose determinant cancels
-    # (a00*a11 - a01^2) and amplifies the order's rounding; there, and for
-    # the oracle, the bar of tests/test_metrics.py: 2e-4
+    # (a00*a11 - a01^2) and amplifies JAX's f32 rounding (the port sums in
+    # f64, as the oracle does); there, and for the oracle, the bar of
+    # tests/test_metrics.py: 2e-4
     rtol = 2e-4 if align_way == 2 else 1e-5
     for k in KEYS:
         np.testing.assert_allclose(float(t[k]), float(j[k]), rtol=rtol,

@@ -197,9 +197,9 @@ _RUNS = {"extra0-stage-A": _STAGE_A_ON, "--batch-size": ("--batch-size", "4"),
 
 @pytest.mark.parametrize("extra,needle", [
     pytest.param(_STAGE_A_ON, "--batch-size", id="extra0-stage-A"),
-    # the model mode runs (tests/test_torch_e2e.py); its int8 perspective
-    # graph is still refused
-    pytest.param(("--persp-ckpt", "x.npz", "--persp-int8"), "--persp-int8",
+    # the model mode runs (tests/test_torch_e2e.py), its int8 perspective
+    # graph too; the file mode refuses the flag with JAX's message
+    pytest.param(("--persp-int8",), "--persp-int8",
                  id="extra1---persp-ckpt"),
     # a model-mode flag without --persp-ckpt
     (("--baseline-ckpt", "b.npz"), "--baseline-ckpt"),
@@ -247,6 +247,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, request, extra, needle):
         tcli.main(argv + list(extra))
     msg = str(e.value.code)
     assert needle in msg and ("not ported" in msg or "model mode only" in msg)
+    if needle == "--persp-int8":
+        # JAX's message (panodepth/cli.py:178-180)
+        assert msg.endswith("--persp-int8 applies to the on-device model "
+                            "mode only; pass --persp-ckpt")
 
 
 def test_cli_cuda_without_card_raises(cli_runs, monkeypatch):

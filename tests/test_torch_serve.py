@@ -29,6 +29,7 @@ from panodepth_torch import fusion as tfusion
 from panodepth_torch import pipeline as tpipeline
 from panodepth_torch import registration as tregistration
 from panodepth_torch import serve as tserve
+import panodepth_torch.config as tconfig
 from panodepth_torch.config import MergeConfig
 
 torch.set_num_threads(1)
@@ -113,6 +114,7 @@ import torch
 torch.set_num_threads(1)  # the CPU's sum order, as in this process
 sys.path.insert(0, sys.argv[4])
 from panodepth_torch import pipeline, serve
+import panodepth_torch.config as tconfig
 from panodepth_torch.config import MergeConfig
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
 art = serve.load(sys.argv[1])
@@ -196,11 +198,64 @@ def test_load_refuses_another_device(merge):
         tserve.load(merge["path"], device="meta")
 
 
-def test_export_refuses_persp_int8_and_cuda_without_card(tmp_path):
-    with pytest.raises(SystemExit, match="item 6b"):
-        tserve.main(["export-e2e", str(tmp_path / "x.pt2"), "--persp-ckpt",
-                     "p.npz", "--baseline-ckpt", "b.npz", "--persp-int8",
-                     "--device", "cpu"])
+def test_load_gives_the_saved_program(merge):
+    """``serve.load`` adds nothing to the program: its graph and signature
+    are ``torch.export.load``'s."""
+    got = tserve.load(merge["path"]).program
+    want = torch.export.load(merge["path"])
+    assert str(got.graph) == str(want.graph)
+    assert got.graph_signature == want.graph_signature
+
+
+def test_export_refuses_persp_int8_and_cuda_without_card(tmp_path, capsys):
+    """``export-e2e --persp-int8`` (refused until it was ported) exports the
+    zoo GN perspective net's int8 graph beside FastPanoNet on the CPU (two
+    views 64 wide, out 64, u8 64x128 RGB, batch 1; the baseline net 64
+    wide): the artifact loads and runs bit-equal to the in-process graph
+    (the plain int8 conv in the program: the CPU has no kernel).  The
+    CUDA export without a card is refused."""
+    from panodepth_torch import e2e as te
+
+    import math
+
+    d2r = math.pi / 180.0
+    fovs = np.array([(25 * d2r, 175 * d2r, 30 * d2r, 150 * d2r),
+                     (185 * d2r, 355 * d2r, 30 * d2r, 150 * d2r)])
+    ranges = np.array([(170 * d2r, 30 * d2r, 40 * d2r, 140 * d2r),
+                       (350 * d2r, 190 * d2r, 40 * d2r, 140 * d2r)])
+    tconfig.layout_from_arrays("serve_int8", fovs, ranges)
+    zoo = os.path.join(ROOT, "zoo")
+    ckpts = []
+    for sub, name, width in (("gn", "perspective", None),
+                             ("", "fastpano", 64)):
+        src = os.path.join(zoo, sub, f"{name}_final.params.npz")
+        os.symlink(src, tmp_path / os.path.basename(src))
+        with open(os.path.join(zoo, sub, f"{name}.config.json")) as fp:
+            arch = json.load(fp)
+        if width:
+            arch["pano_width"] = width
+        (tmp_path / f"{name}.config.json").write_text(json.dumps(arch))
+        ckpts.append(str(tmp_path / os.path.basename(src)))
+    path = str(tmp_path / "int8.pt2")
+    assert tserve.main(["export-e2e", path, "--persp-ckpt", ckpts[0],
+                        "--baseline-ckpt", ckpts[1], "--persp-int8",
+                        "--batch", "1", "--rgb-shape", "64x128",
+                        "--out-width", "64", "--layout", "serve_int8",
+                        "--view-width", "64", "--device", "cpu"]) == 0
+    assert "[serve] wrote" in capsys.readouterr().out
+    art = tserve.load(path)
+    assert art.meta["persp_int8"] is True and art.meta["kernels"] == {}
+    persp, _ = te.load_model_checkpoint(ckpts[0], device="cpu",
+                                        quantize=True)
+    base, _ = te.load_model_checkpoint(ckpts[1], device="cpu")
+    full, _, _ = te.build_batched_e2e(
+        persp, MergeConfig(layout_name="serve_int8", out_width=64),
+        view_width=64, base_model=base, base_w=64, device="cpu")
+    rgb = np.random.RandomState(4).randint(0, 256, (1, 64, 128, 3)).astype(
+        np.uint8)
+    got, want = art(rgb), full.eager(torch.tensor(rgb))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tserve.export_merge(str(tmp_path / "m.pt2"), TCFG, batch=1,

@@ -11,9 +11,9 @@ Phases, each printing its elapsed seconds:
 
 1. device  — the card's name and power limit.
 2. build   — every CUDA source of the port (the Jacobi, the GroupNorm, the
-             int8 conv) compiled with nvcc and the JPEG codec with g++ (in
-             parallel), with ptxas's registers, shared memory and spills
-             per kernel.
+             int8 conv, the activation's quantization) compiled with nvcc
+             and the JPEG codec with g++ (in parallel), with ptxas's
+             registers, shared memory and spills per kernel.
 3. kernel  — the Jacobi kernel bit-equal to its plain PyTorch version at
              every level of the 2048 and the 4096 plan, each level's launch
              plan printed; the 2048 levels timed beside the plain version
@@ -98,12 +98,15 @@ Phases, each printing its elapsed seconds:
              int8 convs on the 15 views' real activations, the qconv
              kernel's int32 sums and bf16 output bit-equal to the plain
              twin's and the sums to ``F.unfold`` + ``torch._int_mm``'s, each
-             distinct shape and the 39 as a set timed (kernel, plain,
-             unfold + _int_mm, the bf16 ``F.conv2d``) with the bound; the
+             distinct shape (with its launch plan) and the 39 as a set
+             timed (kernel, plain, unfold + _int_mm, the bf16 ``F.conv2d``)
+             with the bound; the quantization kernel's codes and scales
+             bit-equal to the plain pass's on the 39 inputs, each shape
+             and the set timed (kernel, plain) with the bound; the
              net's output within JAX's 0.12 relative RMS of the float
              net's; the int8 e2e graph beside FastPanoNet (the checks
-             above, kernel routes equal to plain routes, 39 qconv
-             launches a forward), its u16 distance from the bf16 GN
+             above, kernel routes equal to plain routes, 39 qconv and 78
+             quantize launches a forward), its u16 distance from the bf16 GN
              graph's and both timed in turns.  Then the model-mode CLI with
              the BiFuse baseline and the GN perspective net, with resume,
              ``--base-width 256`` refused for HoHoNet, and the CLI with
@@ -123,7 +126,8 @@ Phases, each printing its elapsed seconds:
              nodes (3 ``jacobi``; 29 ``group_norm`` a FastPanoNet forward),
              the launches of its first call and of a replay under the
              profiler (26 Jacobi launches a batch, one GroupNorm launch a
-             norm call, 39 qconv launches an int8 forward), its outputs
+             norm call, 39 qconv and 78 quantize launches an int8
+             forward), its outputs
              bit-equal to the in-process ``compiled_merge_batched`` or
              ``e2e.full`` graph; the merge and e2e ones again after a load
              in a fresh process that imports no JAX; the ``daemon`` on the e2e
@@ -160,7 +164,8 @@ Phases, each printing its elapsed seconds:
              the corruption on the card against the CPU on the same draws;
              ``evaluate --corrupt`` (RMSE beside the clean one, launches);
              ``evaluate --int8`` on the zoo GN perspective net (RMSE and
-             delta1 beside the float graph's, qconv launches counted);
+             delta1 beside the float graph's, qconv and quantize launches
+             counted);
              the merge CLI with --debug-nans on phase cli's first scene
              (eager: 26 Jacobi launches, output bit-equal to phase cli's);
              then the two ``train_cli`` children (run beside phases
@@ -1482,12 +1487,13 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
     full, _, _ = build()
     want = dict(jacobi=graph_launches(sum(jacobi_launches(cfg))),
                 group_norm=graph_launches(b * norms * kg.launches_per_call()),
-                qconv=graph_launches(b * qconvs))
-    kj.LAUNCHES = kg.LAUNCHES = kq.LAUNCHES = 0
+                qconv=graph_launches(b * qconvs),
+                quantize=graph_launches(b * qconvs * kq.QUANTIZE_KERNELS))
+    kj.LAUNCHES = kg.LAUNCHES = kq.LAUNCHES = kq.QUANTIZE_LAUNCHES = 0
     out, bases = full(rgbs)
     torch.cuda.synchronize()
     launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES,
-                    qconv=kq.LAUNCHES)
+                    qconv=kq.LAUNCHES, quantize=kq.QUANTIZE_LAUNCHES)
     if launches != want:
         raise AssertionError(f"families {name} e2e launches {launches}, "
                              f"expected {want}")
@@ -1527,11 +1533,15 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
     gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
     q_ms = sum(ms for ms, _, key in events if "qconv_kernel" in key)
     q_seen = sum(n for _, n, key in events if "qconv_kernel" in key)
-    if replay_count and busy_ms > 0 and (gn_seen, q_seen) != (
-            b * norms, b * qconvs):
+    qz_ms = sum(ms for ms, _, key in events if "quantize_" in key)
+    qz_seen = sum(n for _, n, key in events if "quantize_" in key)
+    if replay_count and busy_ms > 0 and (gn_seen, q_seen, qz_seen) != (
+            b * norms, b * qconvs, b * qconvs * kq.QUANTIZE_KERNELS):
         raise AssertionError(f"families {name}: the replay ran {gn_seen} "
-                             f"groupnorm and {q_seen} qconv launches, "
-                             f"expected {b * norms} and {b * qconvs}")
+                             f"groupnorm, {q_seen} qconv and {qz_seen} "
+                             f"quantize launches, expected {b * norms}, "
+                             f"{b * qconvs} and "
+                             f"{b * qconvs * kq.QUANTIZE_KERNELS}")
     idle = 1 - busy_ms / call_ms if busy_ms > 0 else None
     print(f"families {name} e2e (batch {b}, {norms} norms"
           + (f" and {qconvs} int8 convs" if qconvs else "")
@@ -1542,7 +1552,8 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
           f"{batch_diff}; graph {call_ms / b!r} ms a panorama (host clock, "
           f"median of 5), device busy {busy_ms!r} of {call_ms!r} ms a call "
           f"(idle share {idle!r}), groupnorm {gn_ms!r} ms in {gn_seen} "
-          f"launches" + (f", qconv {q_ms!r} ms in {q_seen} launches"
+          f"launches" + (f", qconv {q_ms!r} ms in {q_seen} launches, "
+                         f"quantize {qz_ms!r} ms in {qz_seen} launches"
                          if qconvs else "")
           + "; top device time by name (ms, calls):")
     for ms, count, key in events[:8]:
@@ -1550,7 +1561,8 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
     return dict(launches=launches, route_diff=route, batch_diff=batch_diff,
                 ms_per_pano=call_ms / b, call_ms=call_ms, busy_ms=busy_ms,
                 idle_share=idle, groupnorm_graph_ms=gn_ms,
-                qconv_graph_ms=q_ms, norms_per_pano=norms,
+                qconv_graph_ms=q_ms, quantize_graph_ms=qz_ms,
+                norms_per_pano=norms,
                 qconvs_per_pano=qconvs,
                 **(dict(graph=full, out=out) if keep else {}))
 
@@ -1605,9 +1617,9 @@ def _qconv_args(m, x):
     kh, kw = m.kernel_q.shape[2:]
     pads = (same_pads(x.shape[2], kh, m.strides[0]),
             same_pads(x.shape[3], kw, m.strides[1]))
-    xq, sx = kq.quantize_activation(x)
-    return (kq.to_nhwc(xq), m.weight(), sx, m.scale, m.bias, (kh, kw),
-            m.strides, pads, m.dtype)
+    xq, sx = kq.quantize_nhwc_plain(x)
+    return (xq, m.weight(), sx, m.scale, m.bias, (kh, kw), m.strides, pads,
+            m.dtype)
 
 
 def _qconv_library(args):
@@ -1652,6 +1664,66 @@ def _qconv_bf16_conv(m, x):
     return lambda: F.conv2d(xp, w, stride=m.strides)
 
 
+def _quantize_hold(calls):
+    """The activation's quantization ahead of each int8 conv of one
+    forward (``calls``: (QConv, input) pairs): the kernel's codes and
+    scales bit-equal to the plain twin's on all of them; each distinct
+    input shape and the set timed from CUDA graphs (kernel, plain pass)
+    beside the bound (bytes: each input read once, the codes and scales
+    written)."""
+    from panodepth_torch.kernels import qconv as kq
+
+    shapes, rows, kern, plain = {}, [], [], []
+    total_bytes, max_abs = 0, 0
+    for _, x in calls:
+        q, sx = kq.cuda_quantize_nhwc(x)
+        want_q, want_sx = kq.quantize_nhwc_plain(x)
+        code_err = int((q.int() - want_q.int()).abs().max())
+        sx_bits = int((sx.view(torch.int32) != want_sx.view(torch.int32))
+                      .sum())
+        if q.shape != want_q.shape or code_err or sx_bits:
+            raise AssertionError(
+                f"quantize: kernel and plain differ at {tuple(x.shape)} "
+                f"{x.dtype}: codes max abs {code_err}, {sx_bits} scales "
+                f"differ in their bits")
+        max_abs = max(max_abs, code_err)
+        # the bytes the function needs: the input read once, one code
+        # written per real element (not the stem's padding of 3 channels
+        # to 16), the scales
+        nbytes = (x.numel() * x.element_size() + x.numel()
+                  + sx.numel() * sx.element_size())
+        total_bytes += nbytes
+        kern.append(lambda x=x: kq.cuda_quantize_nhwc(x))
+        plain.append(lambda x=x: kq.quantize_nhwc_plain(x))
+        key = (*x.shape, str(x.dtype).replace("torch.", ""))
+        shapes[key] = shapes.get(key, 0) + 1
+        if shapes[key] == 1:
+            rows.append((key, len(kern) - 1, nbytes))
+    table = []
+    for key, i, nbytes in rows:
+        t = dict(kernel=_graph_ms(kern[i], 5, 3),
+                 plain=_graph_ms(plain[i], 5, 3))
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        table.append(dict(shape=key, calls=shapes[key], bytes=nbytes,
+                          bound_ms=bound, kernel_ms=t["kernel"],
+                          plain_ms=t["plain"]))
+        print(f"int8 quantize (N, C, H, W, dtype) {key} x{shapes[key]}: "
+              f"kernel {t['kernel']!r} ms, plain {t['plain']!r} ms, bound "
+              f"{bound!r} ms ({nbytes / 1e6:.3f} MB)")
+    per_set = dict(kernel=_graph_ms(lambda: [f() for f in kern], reps=1),
+                   plain=_graph_ms(lambda: [f() for f in plain], reps=1))
+    bound = total_bytes / PEAK_BYTES_PER_S * 1e3
+    print(f"int8 quantize: {len(calls)} calls a forward over {len(rows)} "
+          f"shapes, codes and scales bit-equal to the plain pass's; the set "
+          f"({total_bytes / 1e6:.1f} MB): kernel {per_set['kernel']!r} ms, "
+          f"plain {per_set['plain']!r} ms from CUDA graphs, bound "
+          f"{bound!r} ms (bytes)")
+    return dict(calls=len(calls), shapes=table, max_abs_err=float(max_abs),
+                ms=per_set["kernel"], plain_ms=per_set["plain"],
+                bound_ms=bound, bound_by="bytes", bytes=total_bytes,
+                launches_per_call=kq.QUANTIZE_KERNELS)
+
+
 def _qconv_hold(net, feed):
     """Every int8 conv of one forward of the int8 GN net on ``feed`` (the
     15 views of a panorama at 256x256, real activations of the zoo
@@ -1659,7 +1731,8 @@ def _qconv_hold(net, feed):
     plain twin's and the sums to the library's; each distinct shape timed
     (kernel, plain, ``F.unfold`` + ``torch._int_mm``, the bf16
     ``F.conv2d``; all but the plain twin from CUDA graphs, the device's
-    time) with its bound, then the 39 calls as a set."""
+    time) with its bound and its launch plan, then the 39 calls as a set;
+    then the quantization ahead of each (:func:`_quantize_hold`)."""
     from panodepth_torch.kernels import qconv as kq
 
     calls = _qconv_calls(net, feed)
@@ -1702,22 +1775,27 @@ def _qconv_hold(net, feed):
         key = (n, h, w, cin, cout, kh, m.strides[0])
         shapes[key] = shapes.get(key, 0) + 1
         if shapes[key] == 1:
-            rows.append((key, len(sets["kernel"]) - 1, ops, nbytes))
+            plan = kq.qconv_plan(n, h, w, cinp, cout, kh, kw, *m.strides,
+                                 args[7])
+            rows.append((key, len(sets["kernel"]) - 1, ops, nbytes,
+                         dict(bn=plan.bn, stages=plan.stages,
+                              splits=plan.splits, blocks=plan.blocks)))
     if max_abs != 0.0:
         raise AssertionError(f"int8: qconv kernel vs plain max abs {max_abs}")
     table = []
     with torch.no_grad():
-        for key, i, ops, nbytes in rows:
+        for key, i, ops, nbytes, plan in rows:
             t = dict(kernel=_graph_ms(sets["kernel"][i], 5, 3),
                      plain=_median_ms(sets["plain"][i], 2, 1),
                      library=_graph_ms(sets["library"][i], 5, 3),
                      bf16_conv=_graph_ms(sets["bf16_conv"][i], 5, 3))
             bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S) * 1e3
             table.append(dict(shape=key, calls=shapes[key], ops=ops,
-                              bytes=nbytes, bound_ms=bound, **{
+                              bytes=nbytes, bound_ms=bound, plan=plan, **{
                                   f"{k}_ms": v for k, v in t.items()}))
             print(f"int8 qconv (N, H, W, Cin, Cout, k, stride) {key} x"
-                  f"{shapes[key]}: kernel {t['kernel']!r} ms, plain "
+                  f"{shapes[key]}, plan {plan}: kernel {t['kernel']!r} ms, "
+                  f"plain "
                   f"{t['plain']!r} ms, unfold + _int_mm {t['library']!r} ms, "
                   f"bf16 F.conv2d {t['bf16_conv']!r} ms, bound {bound!r} ms "
                   f"({ops / 1e9:.3f} G int8 ops, {nbytes / 1e6:.3f} MB)")
@@ -1739,13 +1817,15 @@ def _qconv_hold(net, feed):
           f"{per_set['library']!r} ms, bf16 F.conv2d "
           f"{per_set['bf16_conv']!r} ms, bound {max(ops_ms, bytes_ms)!r} ms "
           f"({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    with torch.no_grad():
+        quantize = _quantize_hold(calls)
     return dict(calls=len(calls), shapes=table, max_abs_err=max_abs,
                 ms=per_set["kernel"], device_ms=busy_ms, eager_ms=host_ms,
                 plain_ms=per_set["plain"], library_ms=per_set["library"],
                 bf16_conv_ms=per_set["bf16_conv"],
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                ops=total_ops, bytes=total_bytes)
+                ops=total_ops, bytes=total_bytes, quantize=quantize)
 
 
 def _int8_e2e(gn_net, base, rgbs, feed, gn_e2e):
@@ -1901,14 +1981,15 @@ def phase_families_cli(rgbs_u8, int8_graph):
         res8 = os.path.join(root, "res_int8")
         argv = ["0", d["rgb"], d["gt"], d["bl"], res8, "--persp-ckpt",
                 GN_PERSP_CKPT, "--baseline-ckpt", BASE_CKPT, "--persp-int8"]
-        kj.LAUNCHES = kg.LAUNCHES = kq.LAUNCHES = 0
+        kj.LAUNCHES = kg.LAUNCHES = kq.LAUNCHES = kq.QUANTIZE_LAUNCHES = 0
         if cli.main(argv) != 0:
             raise AssertionError("cli.main --persp-int8 returned non-zero")
         launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES,
-                        qconv=kq.LAUNCHES)
+                        qconv=kq.LAUNCHES, quantize=kq.QUANTIZE_LAUNCHES)
         want = dict(jacobi=graph_launches(per_pano), group_norm=graph_launches(
             (GN_CALLS + FAMILIES["gn_perspective"][2])
-            * kg.launches_per_call()), qconv=graph_launches(GN_INT8_QCONVS))
+            * kg.launches_per_call()), qconv=graph_launches(GN_INT8_QCONVS),
+            quantize=graph_launches(GN_INT8_QCONVS * kq.QUANTIZE_KERNELS))
         dev = torch.device("cuda")
         same = []
         for name, rgb in zip(names, rgbs_u8):
@@ -1921,7 +2002,7 @@ def phase_families_cli(rgbs_u8, int8_graph):
               f"graph's at batch 1: {same}")
         if launches != want or not all(same):
             raise AssertionError("families cli --persp-int8")
-    return launches["qconv"]
+    return launches
 
 
 # --- stage A: the reference's own command, JPEG throughout ---
@@ -2583,28 +2664,33 @@ def _exported(out, label, path):
     return info
 
 
-# each kernel's wrapper module (its launch count) and its name in a profile
-_COUNTED = dict(jacobi=("jacobi", "jacobi_tile"),
-                group_norm=("groupnorm", "gn_cluster"),
-                qconv=("qconv", "qconv_kernel"))
+# each kernel's wrapper module, its launch counter there and its name in
+# a profile (the quantization's two kernels both start "quantize_")
+_COUNTED = dict(jacobi=("jacobi", "LAUNCHES", "jacobi_tile"),
+                group_norm=("groupnorm", "LAUNCHES", "gn_cluster"),
+                qconv=("qconv", "LAUNCHES", "qconv_kernel"),
+                quantize=("qconv", "QUANTIZE_LAUNCHES", "quantize_"))
 
 
 def _launch_counters(keys):
-    """{key: wrapper module} of the kernels ``keys``, their counts at 0."""
+    """{key: a function reading the launch count} of the kernels ``keys``,
+    their counts set to 0."""
     import importlib
 
-    mods = {k: importlib.import_module(
-        f"panodepth_torch.kernels.{_COUNTED[k][0]}") for k in keys}
-    for mod in mods.values():
-        mod.LAUNCHES = 0
-    return mods
+    reads = {}
+    for k in keys:
+        mod_name, attr, _ = _COUNTED[k]
+        mod = importlib.import_module(f"panodepth_torch.kernels.{mod_name}")
+        setattr(mod, attr, 0)
+        reads[k] = (lambda mod=mod, attr=attr: getattr(mod, attr))
+    return reads
 
 
 def _replay_kernels(run, keys=("jacobi", "group_norm")):
     """(device busy ms, {kernel: launches}) of one ``run()`` under the
     profiler, for the kernels ``keys``."""
     busy, events = _device_profile(run)
-    return busy, {k: sum(c for _, c, n in events if _COUNTED[k][1] in n)
+    return busy, {k: sum(c for _, c, n in events if _COUNTED[k][2] in n)
                   for k in keys}
 
 
@@ -2624,7 +2710,7 @@ def _hold_loaded(label, art, ins, want, nodes, per_call,
     got = art(*ins)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    launches = {k: read() for k, read in counters.items()}
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
     if before_replay is not None:
         before_replay()
@@ -2771,6 +2857,7 @@ def export_and_hold(name, argv):
     stdin."""
     from panodepth_torch import MergeConfig, serve
     from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
+    from panodepth_torch.kernels import qconv as kq
     from panodepth_torch.models import norm as pnorm
 
     if serve.main(argv) != 0:
@@ -2792,11 +2879,12 @@ def export_and_hold(name, argv):
     cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
     norms = sum(isinstance(m, pnorm.GroupNorm)
                 for n in (p_net, b_net) for m in n.modules())
-    jac_op, gn_op, q_op = serve.KERNEL_OPS
+    jac_op, gn_op, q_op, quant_op = serve.KERNEL_OPS
     nodes = {jac_op: 3, gn_op: norms}
     per_call = dict(jacobi=sum(jacobi_launches(cfg)), group_norm=norms)
     if name == "gn_int8":
-        nodes[q_op] = per_call["qconv"] = GN_INT8_QCONVS
+        nodes[q_op] = nodes[quant_op] = per_call["qconv"] = GN_INT8_QCONVS
+        per_call["quantize"] = GN_INT8_QCONVS * kq.QUANTIZE_KERNELS
     fam_graph = build_batched_e2e(p_net, cfg, view_width=256,
                                   base_model=b_net, base_w=512)[0]
     # the phase's e2e input (phase groupnorm's first panorama)
@@ -2937,7 +3025,7 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
         arts, loaded = {}, {}
         # a jacobi node per pyramid level, a group_norm node per norm
         # call (29 a FastPanoNet forward, one forward a panorama)
-        jac_op, gn_op, _ = serve.KERNEL_OPS
+        jac_op, gn_op, _, _ = serve.KERNEL_OPS
         gn_calls = SERVE_E2E_BATCH * GN_CALLS
         expect = dict(
             merge=({jac_op: 3}, dict(jacobi=per_batch, group_norm=0)),
@@ -3718,24 +3806,27 @@ def _train_evaluate():
                              f"launches, record {bad}")
     from panodepth_torch.kernels import qconv as kq
 
-    kq.LAUNCHES = 0
+    kq.LAUNCHES = kq.QUANTIZE_LAUNCHES = 0
     i8 = peval.evaluate(GN_PERSP_CKPT, count=16, int8=True)
     torch.cuda.synchronize()
-    i8_launches = kq.LAUNCHES
+    i8_launches, i8_quantize = kq.LAUNCHES, kq.QUANTIZE_LAUNCHES
     fl = peval.evaluate(GN_PERSP_CKPT, count=16)
     print(f"train evaluate --int8 zoo GN perspective net (16 v1 scenes, "
           f"seed 77000): rmse {i8['rmse']!r}, delta1 {i8['delta1']!r}; "
           f"without --int8 rmse {fl['rmse']!r}, delta1 {fl['delta1']!r}; "
-          f"{i8_launches} qconv launches")
-    if i8_launches != 4 * GN_INT8_QCONVS or not i8["int8"] or not \
-            np.isfinite(i8["rmse"]):
-        raise AssertionError(f"evaluate --int8: {i8_launches} qconv "
-                             f"launches, record {i8}")
+          f"{i8_launches} qconv and {i8_quantize} quantize launches")
+    if (i8_launches, i8_quantize) != (
+            4 * GN_INT8_QCONVS, 4 * GN_INT8_QCONVS * kq.QUANTIZE_KERNELS) or \
+            not i8["int8"] or not np.isfinite(i8["rmse"]):
+        raise AssertionError(f"evaluate --int8: {i8_launches} qconv and "
+                             f"{i8_quantize} quantize launches, record {i8}")
     return dict(got, launches=launches, seconds=secs,
                 route_diff=diff, rmse_off=off,
                 corrupt=dict(bad, launches=bad_launches),
                 gn_int8=dict(rmse=i8["rmse"], delta1=i8["delta1"],
-                             launches=i8_launches, float_rmse=fl["rmse"],
+                             launches=i8_launches,
+                             quantize_launches=i8_quantize,
+                             float_rmse=fl["rmse"],
                              float_delta1=fl["delta1"]))
 
 
@@ -3880,6 +3971,7 @@ def main():
         trainers.close()
 
     int8 = families["gn_int8"]
+    quantized = int8["qconv"]["quantize"]
     kernels = [dict(
         name="jacobi", route="cuda", source="panodepth_torch/csrc/jacobi.cu",
         replaces="panodepth/kernels/jacobi.py:98",
@@ -3942,10 +4034,29 @@ def main():
         device_ms_in_e2e_graph=int8["e2e"]["qconv_graph_ms"],
         launches_by_path=dict(
             e2e_gn_int8=int8["e2e"]["launches"]["qconv"],
-            cli_int8=int8["cli_launches"],
+            cli_int8=int8["cli_launches"]["qconv"],
             serve_gn_int8=served["families"]["gn_int8"]["launches"]["qconv"],
             evaluate_int8=trained["evaluate"]["gn_int8"]["launches"]),
-        shapes=int8["qconv"]["shapes"])]
+        shapes=int8["qconv"]["shapes"]), dict(
+        name="quantize_nhwc", route="cuda",
+        source="panodepth_torch/csrc/quantize.cu",
+        # not a TPU kernel: XLA's fusion of QConv's quantization
+        replaces="panodepth/models/perspective.py:62",
+        launches=int8["e2e"]["launches"]["quantize"],
+        max_abs_err=quantized["max_abs_err"], ms=quantized["ms"],
+        plain_ms=quantized["plain_ms"], bound_ms=quantized["bound_ms"],
+        bound_by=quantized["bound_by"], library_ms=None,
+        calls_per_forward=quantized["calls"],
+        launches_per_call=quantized["launches_per_call"],
+        device_ms_in_e2e_graph=int8["e2e"]["quantize_graph_ms"],
+        launches_by_path=dict(
+            e2e_gn_int8=int8["e2e"]["launches"]["quantize"],
+            cli_int8=int8["cli_launches"]["quantize"],
+            serve_gn_int8=served["families"]["gn_int8"]["launches"][
+                "quantize"],
+            evaluate_int8=trained["evaluate"]["gn_int8"][
+                "quantize_launches"]),
+        shapes=quantized["shapes"])]
     print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
           f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "

@@ -29,7 +29,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("jacobi", "groupnorm", "qconv")  # CUDA sources, csrc/<name>.cu
+SOURCES = ("jacobi", "groupnorm", "qconv",  # CUDA sources, csrc/<name>.cu
+           "quantize")
 HOST_SOURCES = ("jpeg",)           # host C++ sources, csrc/<name>.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

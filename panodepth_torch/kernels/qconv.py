@@ -1,23 +1,33 @@
-"""int8 convolution: the hand-written CUDA kernel and its plain twin.
+"""int8 convolution and its activation quantization: the hand-written CUDA
+kernels and their plain twins.
 
 The int8 perspective graph (``models/layers.QConv``, the counterpart of
-``panodepth/models/perspective.py::QConv``) convolves int8 activation codes
-with int8 weight codes into exact int32 sums and scales them back to the
-compute type.  The JAX package leaves that conv to XLA
-(``lax.conv_general_dilated(..., preferred_element_type=jnp.int32)``,
-perspective.py:68-72); on the card no PyTorch conv computes it (``F.conv2d``
-takes no int8), so the port has a kernel of its own.  It is not the port
-of a TPU kernel: no Pallas kernel of the JAX package computes this.
+``panodepth/models/perspective.py::QConv``) quantizes each activation per
+image, convolves the int8 codes with int8 weight codes into exact int32
+sums and scales them back to the compute type.  The JAX package leaves all
+of that to XLA (``jnp`` ops and ``lax.conv_general_dilated(...,
+preferred_element_type=jnp.int32)``, perspective.py:62-72); on the card no
+PyTorch conv computes it (``F.conv2d`` takes no int8), so the port has two
+kernels of its own.  Neither is the port of a TPU kernel: no Pallas kernel
+of the JAX package computes these.
+
+``cuda_quantize_nhwc`` launches ``csrc/quantize.cu`` (two launches: the
+per-image absmax, then the codes through a shared-memory transpose);
+``quantize_nhwc_plain`` is the same function in plain PyTorch,
+:func:`to_nhwc` of :func:`quantize_activation`.  Both take an NCHW bf16 or
+f32 activation and return its int8 codes NHWC with the channels
+zero-padded to a multiple of 16, and the f32 (N,) scales.
 
 ``cuda_qconv`` launches ``csrc/qconv.cu``: an implicit GEMM on the int8
-tensor cores with the scaling epilogue fused (the source note says what
-bounds it).  ``qconv_plain`` is the same function in plain PyTorch: the
-conv in float64 on the integer codes (exact: every partial sum is an
+tensor cores (wgmma, the weights by TMA, a plan per shape from
+:func:`qconv_plan`) with the scaling epilogue fused (the source note says
+what bounds it).  ``qconv_plain`` is the same function in plain PyTorch:
+the conv in float64 on the integer codes (exact: every partial sum is an
 integer far below 2^53), cast to int32, then the epilogue in PyTorch ops.
 Both take
 
 * ``xq``: int8 (N, H, W, Cinp), the activation's codes NHWC with the
-  channels zero-padded to a multiple of 16 (:func:`to_nhwc`);
+  channels zero-padded to a multiple of 16 (:func:`quantize_nhwc`);
 * ``wq``: int8 (Cout, Kp), the weight codes with K ordered (kh, kw, Cinp)
   and zero-padded to a multiple of 64 (:func:`prepare_weight`);
 * ``sx`` f32 (N,) and ``scale`` f32 (Cout,), the codes' scales; ``bias``
@@ -29,21 +39,24 @@ and return the NCHW ``out_dtype`` output ``(f32(acc) * (sx[n] *
 scale[c])).to(out_dtype)`` plus ``bias.to(out_dtype)``, in JAX's order of
 operations.  :func:`resolve` maps a route to one of them: ``auto`` takes the
 kernel for a CUDA tensor and the twin for a CPU tensor, ``kernel`` always
-the kernel (which raises on a CPU tensor), ``torch`` always the twin.
-Nothing falls back.  The CPU tests hold the twin against the JAX package,
-and the card holds the kernel against the twin on the same codes.
+the kernel (which raises on a CPU tensor), ``torch`` always the twin; with
+``op="quantize"`` it does the same for the quantization.  Nothing falls
+back.  The CPU tests hold the twins against the JAX package, and the card
+holds the kernels against the twins on the same inputs.
 
-``cuda_qconv`` reaches the kernel through the PyTorch operator
-``panodepth_torch::qconv`` (``torch.library.custom_op``, CUDA only, with a
-fake implementation for tracers), so a program that ``torch.export``
-traces holds the kernel as one node (``serve.py``).  The int8 graph is for
-inference: neither version has a backward.
+The kernels are reached through the PyTorch operators
+``panodepth_torch::qconv`` and ``panodepth_torch::quantize_nhwc``
+(``torch.library.custom_op``, CUDA only, with fake implementations for
+tracers), so a program that ``torch.export`` traces holds each kernel as
+one node (``serve.py``).  The int8 graph is for inference: nothing here
+has a backward.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,12 +64,27 @@ import torch.nn.functional as F
 # the operators' namespace: the package's name (see kernels/jacobi.py)
 OPS = __name__.split(".")[0]
 
-# kernel launches made by the wrappers in this process (one per call)
+# kernel launches made by the wrappers in this process: qconv one a call,
+# the quantization QUANTIZE_KERNELS a call
 LAUNCHES = 0
+QUANTIZE_LAUNCHES = 0
+QUANTIZE_KERNELS = 2  # the absmax pass, then the codes
 
 CIN_ALIGN = 16  # the input's channels padded to this (a 16-byte copy)
-K_ALIGN = 64    # the weights' K padded to this (the kernel's K tile)
+K_ALIGN = 64    # the weights' K padded to this
 _DTYPES = (torch.bfloat16, torch.float32)
+
+# the qconv kernel's geometry (csrc/qconv.cu) and the card's
+BM = 128             # output pixels a block (two warpgroups of 64 rows)
+BK = 128             # K bytes a pipeline stage (one 128-byte swizzle row)
+TILE_N = (32, 64, 128)  # output channels a block: wgmma's N
+# the ring's depth at each tile width: two blocks an SM in shared memory
+# (loads run stages - 2 tiles ahead)
+STAGES = {32: 4, 64: 4, 128: 3}
+MIN_STAGES, MAX_STAGES = 3, 8
+SMS = 132            # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448 - 256  # dynamic shared memory a block may take
+MIN_SPLIT_KTILES = 3     # K tiles a split keeps at the least
 
 
 def _round_up(v: int, m: int) -> int:
@@ -80,7 +108,10 @@ def quantize_activation(x: torch.Tensor):
     the codes ``clip(round(x / sx), -127, 127)`` as int8 (round half to
     even, as ``jnp.round``).  Both divisions are true divisions (a tensor
     divisor; PyTorch multiplies by a Python scalar's reciprocal on the
-    card).  Returns (int8 NCHW codes, f32 (N,) scales)."""
+    card), as JAX computes them op by op.  (Under ``jax.jit`` XLA turns the
+    division by the constant 127 into a product by f32(1/127), whose last
+    bit differs for ~5 % of amaxes; the port keeps the true division.)
+    Returns (int8 NCHW codes, f32 (N,) scales)."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=tuple(range(1, x.dim())))
     sx = torch.clamp_min(amax, 1e-8) / torch.full((), 127.0,
@@ -101,6 +132,109 @@ def to_nhwc(xq: torch.Tensor) -> torch.Tensor:
 
 def out_size(size: int, k: int, stride: int, pads) -> int:
     return (size + pads[0] + pads[1] - k) // stride + 1
+
+
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """lax's SAME padding (before, after) of one spatial axis (the nets'
+    ``models.layers.same_pads`` too)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def smem_bytes(bn: int, stages: int) -> int:
+    """Dynamic shared memory of a launch, passed to ``panodepth_qconv``:
+    the ring of A and B tiles, or the epilogue's staging where larger (it
+    takes the ring's place once the sums are in registers), plus the
+    1024-byte alignment.  The kernel carves its shared memory so; this is
+    the one place its size is computed."""
+    return 1024 + max(stages * (BM + bn) * BK, bn * (BM + 4) * 4)
+
+
+@dataclass(frozen=True)
+class QConvPlan:
+    """One launch of ``csrc/qconv.cu``: the GEMM's sizes, the output tile
+    (``BM`` x ``bn``), the depth of the ring and the split of K: a block
+    a tile and split."""
+
+    m: int        # output pixels, N * Ho * Wo
+    cout: int
+    ktaps: int    # kh * kw * Cinp: the real part of K
+    bn: int
+    stages: int
+    splits: int
+
+    @property
+    def m_tiles(self) -> int:
+        return -(-self.m // BM)
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.cout // self.bn)
+
+    @property
+    def tiles(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def ktiles(self) -> int:
+        return -(-self.ktaps // BK)
+
+    @property
+    def ktiles_per_split(self) -> int:
+        return -(-self.ktiles // self.splits)
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def smem_bytes(self) -> int:
+        return smem_bytes(self.bn, self.stages)
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The split-K workspace: a counter per tile (rounded up to 4), then
+        each split's int32 sums of each tile; none without a split."""
+        if self.splits == 1:
+            return 0
+        return 4 * (_round_up(self.tiles, 4)
+                    + self.tiles * self.splits * BM * self.bn)
+
+
+def qconv_plan(n: int, h: int, w: int, cinp: int, cout: int, kh: int,
+               kw: int, sh: int, sw: int, pads=None) -> QConvPlan:
+    """The launch plan of one conv shape (``pads`` ((top, bottom), (left,
+    right)), lax's SAME by default).
+
+    The tile is 32, 64 or 128 channels wide, the narrowest that holds
+    Cout (the stem and the 32- and 64-wide layers fill theirs).  Where
+    the output tiles number fewer than the SMs (the 16x16 and 8x8 layers
+    of the GN perspective net at 15 views), K is split so that the blocks
+    come to at most one wave, each split keeping at least
+    ``MIN_SPLIT_KTILES`` K tiles (int32 sums commute: the split changes
+    no bit).  The ring is as deep as two blocks an SM allow
+    (``STAGES``)."""
+    if pads is None:
+        pads = (same_pads(h, kh, sh), same_pads(w, kw, sw))
+    ho = out_size(h, kh, sh, pads[0])
+    wo = out_size(w, kw, sw, pads[1])
+    bn = next(t for t in TILE_N if cout <= t or t == TILE_N[-1])
+    plan = QConvPlan(n * ho * wo, cout, kh * kw * cinp, bn, STAGES[bn], 1)
+    if plan.tiles < SMS:
+        splits = max(1, min(SMS // plan.tiles,
+                            plan.ktiles // MIN_SPLIT_KTILES))
+        per = -(-plan.ktiles // splits)
+        splits = -(-plan.ktiles // per)  # no split left empty
+        plan = QConvPlan(plan.m, cout, plan.ktaps, bn, STAGES[bn], splits)
+    return plan
+
+
+def quantize_nhwc_plain(x: torch.Tensor):
+    """The quantization in plain PyTorch: :func:`to_nhwc` of
+    :func:`quantize_activation`.  Returns (int8 NHWC codes with the
+    channels padded to a multiple of 16, f32 (N,) scales)."""
+    xq, sx = quantize_activation(x)
+    return to_nhwc(xq), sx
 
 
 def epilogue(acc, sx, scale, bias, out_dtype):
@@ -133,24 +267,44 @@ def qconv_plain(xq, wq, sx, scale, bias, kernel, strides, pads,
                     scale, bias, out_dtype)
 
 
-_LIB = None
+_LIBS = {}
 
 
-def _library():
-    """The built library, its argument types set (built at first use)."""
-    global _LIB
-    if _LIB is None:
+def set_qconv_argtypes(lib):
+    """Declare ``panodepth_qconv``'s C signature on a loaded library (also
+    ``scripts/qconv_probe.py``'s rebuilt forms of the source)."""
+    lib.panodepth_qconv.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [
+        ctypes.c_int] * 18 + [ctypes.c_void_p]
+    lib.panodepth_qconv.restype = ctypes.c_int
+
+
+def _library(name: str = "qconv"):
+    """The built library ``csrc/<name>.cu`` (``qconv`` or ``quantize``),
+    its argument types set (built at first use)."""
+    if name not in _LIBS:
         from . import _build
 
-        lib = _build.load("qconv")
-        lib.panodepth_qconv.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 14 + [
-            ctypes.c_void_p]
-        lib.panodepth_qconv.restype = ctypes.c_int
-        lib.panodepth_qconv_error_string.argtypes = [ctypes.c_int]
-        lib.panodepth_qconv_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        lib = _build.load(name)
+        if name == "qconv":
+            set_qconv_argtypes(lib)
+        else:
+            lib.panodepth_quantize_nhwc.argtypes = [
+                ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+                ctypes.c_int] * 4 + [ctypes.c_void_p]
+            lib.panodepth_quantize_nhwc.restype = ctypes.c_int
+        err_string = getattr(lib, f"panodepth_{name}_error_string")
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _raise_on(name: str, err: int):
+    if err != 0:
+        lib = _library(name)
+        msg = getattr(lib, f"panodepth_{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
 def _check(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype):
@@ -200,9 +354,9 @@ def _check(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype):
 
 
 def _launch(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype,
-            sums: bool):
-    """One launch on checked arguments: the output, or (output, int32
-    sums) with ``sums``."""
+            sums: bool, plan: Optional[QConvPlan] = None):
+    """One launch on checked arguments, with ``plan`` (``qconv_plan``'s by
+    default): the output, or (output, int32 sums) with ``sums``."""
     global LAUNCHES
     kh, kw = kernel
     n, h, w, cinp = xq.shape
@@ -212,22 +366,34 @@ def _launch(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype,
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("cuda_qconv: the kernel copies 16 bytes at a time; "
                          "xq and wq must be 16-byte aligned")
+    if plan is None:
+        plan = qconv_plan(n, h, w, cinp, cout, kh, kw, *strides, pads)
+    elif (plan.m, plan.cout, plan.ktaps) != (n * ho * wo, cout,
+                                              kh * kw * cinp):
+        raise ValueError(f"cuda_qconv: {plan} is not this conv's plan")
     lib = _library()
     y = torch.empty((n, cout, ho, wo), dtype=out_dtype, device=xq.device)
     acc = (torch.empty((n, cout, ho, wo), dtype=torch.int32,
                        device=xq.device) if sums else None)
+    ws = (torch.empty(plan.workspace_bytes, dtype=torch.uint8,
+                      device=xq.device) if plan.splits > 1 else None)
     err = lib.panodepth_qconv(
         xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), y.data_ptr(),
         int(out_dtype == torch.bfloat16),
-        None if acc is None else acc.data_ptr(), n, h, w, cinp, cout, kh, kw,
+        None if acc is None else acc.data_ptr(),
+        None if ws is None else ws.data_ptr(), n, h, w, cinp, cout, kh, kw,
         wq.shape[1], strides[0], strides[1], pads[0][0], pads[1][0], ho, wo,
+        plan.bn, plan.stages, plan.splits, plan.smem_bytes,
         torch.cuda.current_stream(xq.device).cuda_stream)
-    if err != 0:
-        msg = lib.panodepth_qconv_error_string(err).decode()
-        raise RuntimeError(f"qconv kernel launch failed: {msg} ({err})")
+    _raise_on("qconv", err)
     LAUNCHES += 1
     return (y, acc) if sums else y
+
+
+def _canonical(kernel, strides, pads):
+    return (tuple(map(int, kernel)), tuple(map(int, strides)),
+            tuple(tuple(map(int, p)) for p in pads))
 
 
 def cuda_qconv(xq, wq, sx, scale, bias, kernel, strides, pads,
@@ -235,8 +401,7 @@ def cuda_qconv(xq, wq, sx, scale, bias, kernel, strides, pads,
     """The CUDA kernel ``csrc/qconv.cu``, one launch a call (see the module
     docstring for the arguments).  Returns a new NCHW ``out_dtype`` tensor;
     runs on the current stream and does not synchronise."""
-    kernel, strides = tuple(map(int, kernel)), tuple(map(int, strides))
-    pads = tuple(tuple(map(int, p)) for p in pads)
+    kernel, strides, pads = _canonical(kernel, strides, pads)
     _check(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype)
     return _qconv_op(xq, wq, sx, scale, bias, *kernel, *strides, *pads[0],
                      *pads[1], out_dtype)
@@ -247,11 +412,24 @@ def cuda_qconv_sums(xq, wq, sx, scale, bias, kernel, strides, pads,
     """The kernel's output and its int32 sums (N, Cout, Ho, Wo) from one
     launch, outside the operator: for holding the kernel against
     :func:`qconv_sums_plain`."""
-    kernel, strides = tuple(map(int, kernel)), tuple(map(int, strides))
-    pads = tuple(tuple(map(int, p)) for p in pads)
+    return run_plan(xq, wq, sx, scale, bias, kernel, strides, pads,
+                    out_dtype)
+
+
+def run_plan(xq, wq, sx, scale, bias, kernel, strides, pads,
+             out_dtype=torch.bfloat16, plan: Optional[QConvPlan] = None):
+    """:func:`cuda_qconv_sums` with a given launch plan (another tile,
+    depth or split than :func:`qconv_plan`'s): the card tests' and the
+    A/B's way to reach every form of the kernel."""
+    kernel, strides, pads = _canonical(kernel, strides, pads)
     _check(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype)
+    if plan is not None and (plan.bn not in TILE_N or not MIN_STAGES
+                             <= plan.stages <= MAX_STAGES
+                             or not 1 <= plan.splits <= plan.ktiles
+                             or plan.smem_bytes > SMEM_MAX):
+        raise ValueError(f"cuda_qconv: the kernel does not take {plan}")
     return _launch(xq, wq, sx, scale, bias, kernel, strides, pads, out_dtype,
-                   sums=True)
+                   sums=True, plan=plan)
 
 
 @torch.library.custom_op(f"{OPS}::qconv", mutates_args=(),
@@ -277,19 +455,101 @@ def _(xq, wq, sx, scale, bias, kh, kw, sh, sw, pt, pb, pl, pr, out_dtype):
                        device=xq.device)
 
 
+# --- the activation's quantization (csrc/quantize.cu) ---
+
+
+def _check_activation(x):
+    if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+        raise TypeError("cuda_quantize_nhwc: x must be a CUDA tensor (the "
+                        "plain version runs on the CPU)")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"cuda_quantize_nhwc: x must be bf16 or f32, got "
+                        f"{x.dtype}")
+    if x.dim() != 4 or x.numel() == 0 or x.shape[0] > 65535:
+        raise ValueError(f"cuda_quantize_nhwc: x must be a nonempty (N, C, "
+                         f"H, W) activation with N <= 65535, got "
+                         f"{tuple(x.shape)}")
+
+
+def _quantize_launch(x):
+    """Two launches on a checked, contiguous ``x``: (codes, scales)."""
+    global QUANTIZE_LAUNCHES
+    n, c, h, w = x.shape
+    cinp = _round_up(c, CIN_ALIGN)
+    lib = _library("quantize")
+    q = torch.empty((n, h, w, cinp), dtype=torch.int8, device=x.device)
+    sx = torch.empty((n,), dtype=torch.float32, device=x.device)
+    # the absmax pass's scratch words an image, as the source sizes them
+    parts = torch.empty((n, lib.panodepth_quantize_parts()),
+                        dtype=torch.int32, device=x.device)
+    err = lib.panodepth_quantize_nhwc(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), parts.data_ptr(),
+        sx.data_ptr(), q.data_ptr(), n, c, h * w, cinp,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on("quantize", err)
+    QUANTIZE_LAUNCHES += QUANTIZE_KERNELS
+    return q, sx
+
+
+def cuda_quantize_nhwc(x: torch.Tensor):
+    """The CUDA kernels ``csrc/quantize.cu`` (two launches a call) on the
+    NCHW bf16 or f32 activation ``x``: (int8 NHWC codes with the channels
+    padded to a multiple of 16, f32 (N,) scales), as
+    :func:`quantize_nhwc_plain`.  Runs on the current stream and does not
+    synchronise."""
+    _check_activation(x)
+    return _quantize_op(x)
+
+
+@torch.library.custom_op(f"{OPS}::quantize_nhwc", mutates_args=(),
+                         device_types="cuda")
+def _quantize_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The operator's CUDA implementation: two launches (a checked
+    argument, made contiguous here)."""
+    return _quantize_launch(x.contiguous())
+
+
+@_quantize_op.register_fake
+def _(x):
+    n, c, h, w = x.shape
+    return (torch.empty((n, h, w, _round_up(c, CIN_ALIGN)), dtype=torch.int8,
+                        device=x.device),
+            torch.empty((n,), dtype=torch.float32, device=x.device))
+
+
 def _auto(xq, *args, **kwargs):
     fn = cuda_qconv if xq.device.type == "cuda" else qconv_plain
     return fn(xq, *args, **kwargs)
 
 
+def _auto_quantize(x):
+    fn = cuda_quantize_nhwc if x.device.type == "cuda" else \
+        quantize_nhwc_plain
+    return fn(x)
+
+
 ROUTES = ("auto", "torch", "kernel")
+_OPS = {"qconv": {"auto": _auto, "torch": qconv_plain, "kernel": cuda_qconv},
+        "quantize": {"auto": _auto_quantize, "torch": quantize_nhwc_plain,
+                     "kernel": cuda_quantize_nhwc}}
 
 
-def resolve(route: str):
-    """The int8 conv for a route (``auto``, ``torch``, ``kernel``)."""
+def resolve(route: str, op: str = "qconv"):
+    """The function of ``op`` (``qconv``, the int8 conv, or ``quantize``,
+    the activation's quantization) for a route (``auto``, ``torch``,
+    ``kernel``)."""
     try:
-        return {"auto": _auto, "torch": qconv_plain,
-                "kernel": cuda_qconv}[route]
+        return _OPS[op][route]
     except KeyError:
+        if op not in _OPS:
+            raise ValueError(f"op must be one of {tuple(_OPS)}, got "
+                             f"{op!r}") from None
         raise ValueError(f"qconv route must be one of {ROUTES}, "
                          f"got {route!r}") from None
+
+
+def quantize_nhwc(x: torch.Tensor, route: str = "auto"):
+    """The activation's codes and scales by ``route``'s function: the
+    kernel for a CUDA tensor under ``auto``, the plain twin for a CPU
+    one."""
+    return resolve(route, "quantize")(x)

@@ -70,10 +70,8 @@ def init_params(model: nn.Module, generator=None) -> nn.Module:
     return model
 
 
-def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """lax's SAME padding (before, after) of one spatial axis."""
-    total = max((-(-size // stride) - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
+# lax's SAME padding (before, after) of one spatial axis
+same_pads = kqconv.same_pads
 
 
 def train_layout(x, kernel):
@@ -179,11 +177,11 @@ class QConv(Derived):
     ``kernel_q`` holds int8 weight codes (OIHW) and ``scale`` their f32
     per-output-channel scales (made by ``models/quantize.py``); both, and
     the f32 ``bias``, are fixed: no parameter requires grad.  Per call the
-    activation is quantized per image (``kernels.qconv.quantize_activation``,
-    plain PyTorch ops, as JAX leaves it to plain ``jnp``) and written NHWC;
-    the int8 conv with int32 sums and the scaling epilogue run in
-    ``route``'s function (``kernels/qconv.resolve``: ``auto`` the CUDA
-    kernel on the card, the plain twin on the CPU), with lax's SAME pads.
+    activation is quantized per image and written NHWC
+    (``kernels.qconv.quantize_nhwc``), then the int8 conv with int32 sums
+    and the scaling epilogue runs, with lax's SAME pads; both in
+    ``route``'s functions (``kernels/qconv.resolve``: ``auto`` the CUDA
+    kernels on the card, the plain twins on the CPU).
     The kernel's layout of the weights is a derived tensor, made once and
     held like the other convs' casts."""
 
@@ -220,10 +218,10 @@ class QConv(Derived):
         kh, kw = self.kernel_q.shape[2:]
         pads = (same_pads(x.shape[2], kh, self.strides[0]),
                 same_pads(x.shape[3], kw, self.strides[1]))
-        xq, sx = kqconv.quantize_activation(x)
+        xq, sx = kqconv.quantize_nhwc(x, self.route)
         return kqconv.resolve(self.route)(
-            kqconv.to_nhwc(xq), self.weight(), sx, self.scale, self.bias,
-            (kh, kw), self.strides, pads, self.dtype)
+            xq, self.weight(), sx, self.scale, self.bias, (kh, kw),
+            self.strides, pads, self.dtype)
 
 
 def set_qconv_route(module: nn.Module, route: str) -> nn.Module:

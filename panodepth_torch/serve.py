@@ -8,8 +8,8 @@ serving process loads an artifact once and calls it: the batched merge
 ``ExportedProgram`` and written by ``torch.export.save`` (a ``.pt2``).  The
 hand-written kernels are nodes of that program, the operators
 ``panodepth_torch::jacobi``, ``panodepth_torch::group_norm`` and, in the
-int8 perspective graph (``--persp-int8``), ``panodepth_torch::qconv``
-(``kernels/``); every device table and net weight the graph reads is a
+int8 perspective graph (``--persp-int8``), ``panodepth_torch::qconv`` and
+``panodepth_torch::quantize_nhwc`` (``kernels/``); every device table and net weight the graph reads is a
 constant inside it, so the file is self-contained, but it runs only where
 this package is importable (it registers the operators), on the device
 and the PyTorch version it was exported with.  A ``.meta.json`` sidecar
@@ -57,7 +57,7 @@ from .pipeline import resolve_device, true_f32
 
 # the operators of the hand-written kernels, as graph nodes name them
 KERNEL_OPS = (f"{kjacobi.OPS}::jacobi", f"{kgroupnorm.OPS}::group_norm",
-              f"{kqconv.OPS}::qconv")
+              f"{kqconv.OPS}::qconv", f"{kqconv.OPS}::quantize_nhwc")
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

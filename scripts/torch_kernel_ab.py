@@ -6,10 +6,10 @@
 ``DIR`` holds an earlier checkout of the repo, or at least its
 ``panodepth_torch/kernels/`` and ``panodepth_torch/csrc/`` (for example
 ``git archive <commit> panodepth_torch | tar -x -C DIR``).  Its kernels are
-called through that checkout's own wrappers (``cuda_jacobi`` and
-``cuda_group_norm``, whose signatures the port keeps), which build its
-sources with its own flags into ``DIR``, so the script depends on no
-earlier C interface.  It times, in turns old, new, new, old:
+called through that checkout's own wrappers (``cuda_jacobi``,
+``cuda_group_norm`` and ``cuda_qconv``, whose signatures the port keeps),
+which build its sources with its own flags into ``DIR``, so the script
+depends on no earlier C interface.  It times, in turns old, new, new, old:
 
 - the Jacobi, per level of the 2048-wide plan at the plan's coverage:
   CUDA events around one level (median of 9) and the kernels' device time
@@ -18,12 +18,23 @@ earlier C interface.  It times, in turns old, new, new, old:
   counted;
 - the GroupNorm, per FastPanoNet forward: its 29 calls on the inputs the
   zoo net gives them at 256x512 (the inputs of ``chip_smoke.py``'s phase
-  groupnorm), device time under torch.profiler over 5 forwards.
+  groupnorm), device time under torch.profiler over 5 forwards;
+- the int8 conv (``cuda_qconv``), on the 39 calls of one forward of the
+  zoo GN perspective net's int8 graph on the 15 views of a panorama (the
+  inputs of ``chip_smoke.py``'s int8 hold): each distinct shape and the 39
+  as a set, each from a CUDA graph between CUDA events, the outputs of
+  both forms bit-equal; and the activation's quantization ahead of those
+  39 convs, the plain pass (``quantize_nhwc_plain``, the parent's
+  ``quantize_activation`` + ``to_nhwc``) against the kernel
+  (``cuda_quantize_nhwc``), codes and scales bit-equal, in turns plain,
+  kernel, kernel, plain.
 
-``--sweep`` times other Jacobi launch plans at each level and other
+``--sweep`` times other Jacobi launch plans at each level, other
 GroupNorm cluster sizes at each FastPanoNet shape (device time under the
-profiler, through ``run_plan``), the evidence behind the two ``plan_for``
-functions.  ``--sass`` prints each kernel's SASS opcode counts
+profiler, through ``run_plan``) and other qconv plans (tile width, ring
+depth, split of K) at each int8 conv shape, the evidence behind the three
+plan functions.  ``--kernels`` picks which of ``jacobi,groupnorm,qconv``
+to time (all by default).  ``--sass`` prints each kernel's SASS opcode counts
 (``cuobjdump`` beside nvcc).  It needs one CUDA card and nvcc; it prints
 the card's name and power limit and, last, one JSON line of the numbers.
 """
@@ -51,8 +62,9 @@ SWEEP = ((2, 4, 16, 16), (2, 4, 8, 8), (2, 4, 16, 12), (2, 4, 16, 20),
 
 
 def load_old_kernels(tree):
-    """The wrapper modules (jacobi, groupnorm) of the earlier checkout at
-    ``tree``, imported as a package of their own beside the port's."""
+    """The wrapper modules (jacobi, groupnorm, and qconv where the
+    checkout has it) of the earlier checkout at ``tree``, imported as a
+    package of their own beside the port's."""
     import importlib
     import importlib.util
 
@@ -64,8 +76,10 @@ def load_old_kernels(tree):
     pkg = importlib.util.module_from_spec(spec)
     sys.modules[name] = pkg
     spec.loader.exec_module(pkg)
+    has_qconv = os.path.isfile(os.path.join(pkg_dir, "qconv.py"))
     return (importlib.import_module(f"{name}.jacobi"),
-            importlib.import_module(f"{name}.groupnorm"))
+            importlib.import_module(f"{name}.groupnorm"),
+            importlib.import_module(f"{name}.qconv") if has_qconv else None)
 
 
 def launches(module, fn):
@@ -202,6 +216,107 @@ def group_norm_ab(old_kg, rounds, sweep):
     return out
 
 
+def _graph_ms(fn):
+    """Device ms of one ``fn()`` replayed from a CUDA graph."""
+    return chip_smoke._graph_ms(fn, 5, 3)
+
+
+def qconv_ab(old_kq, rounds, sweep):
+    """The int8 convs and their quantization on one forward of the zoo GN
+    perspective net's int8 graph (15 views of a panorama at 256x256)."""
+    from panodepth_torch.e2e import load_model_checkpoint
+    from panodepth_torch.kernels import qconv as kq
+
+    dev = torch.device("cuda")
+    net, _ = load_model_checkpoint(chip_smoke.GN_PERSP_CKPT, quantize=True)
+    rgb = chip_smoke._pano_feed(chip_smoke.make_rgb(chip_smoke.SEED, 2048),
+                                dev)[None]
+    feed = chip_smoke._family_input("gn_perspective", rgb)
+    calls = chip_smoke._qconv_calls(net, feed)
+    args = [chip_smoke._qconv_args(m, x) for m, x in calls]
+    mods = dict(new=kq, **({"old": old_kq} if old_kq else {}))
+    shapes, rows = {}, []
+    for i, ((m, x), a) in enumerate(zip(calls, args)):
+        n, h, w, _ = a[0].shape
+        cout, cin, kh, kw = m.kernel_q.shape
+        key = (n, h, w, cin, cout, kh, m.strides[0])
+        if key not in shapes:
+            rows.append((key, i))
+        shapes[key] = shapes.get(key, 0) + 1
+    out = dict(shapes=[])
+    for key, i in rows:
+        a = args[i]
+        forms = {name: (lambda q=q, a=a: q.cuda_qconv(*a))
+                 for name, q in mods.items()}
+        want = forms["new"]()
+        if old_kq and not torch.equal(forms["old"](), want):
+            raise AssertionError(f"qconv {key}: old and new differ")
+        plan = kq.qconv_plan(*a[0].shape, a[1].shape[0], *a[5], *a[6], a[7])
+        row = dict(shape=key, calls=shapes[key],
+                   plan=[plan.bn, plan.stages, plan.splits],
+                   graph_ms=in_turns(forms, _graph_ms, rounds))
+        print(f"qconv (N, H, W, Cin, Cout, k, stride) {key} x{shapes[key]}, "
+              f"plan (bn, stages, splits) {row['plan']}, {plan.blocks} "
+              f"blocks: device ms from a CUDA graph, in turns "
+              f"{row['graph_ms']!r}")
+        if sweep:
+            row["sweep"] = []
+            want_acc = kq.qconv_sums_plain(*a[:2], *a[5:8])
+            for bn in kq.TILE_N:
+                for stages in range(kq.MIN_STAGES, kq.MAX_STAGES + 1):
+                    for splits in (1, 2, 3, 4, 6, 8, 12, 16):
+                        p = kq.QConvPlan(plan.m, plan.cout, plan.ktaps, bn,
+                                         stages, splits)
+                        if (splits > p.ktiles or p.smem_bytes > kq.SMEM_MAX
+                                or (splits > 1 and p.tiles * splits
+                                    > 2 * kq.SMS)):
+                            continue
+                        run = lambda p=p, a=a: kq.run_plan(*a, plan=p)
+                        if not torch.equal(run()[1], want_acc):
+                            raise AssertionError(f"plan {p} not exact")
+                        ms = _graph_ms(run)
+                        row["sweep"].append(dict(plan=[bn, stages, splits],
+                                                 device_ms=ms))
+                        print(f"  sweep {key}: bn {bn}, stages {stages}, "
+                              f"splits {splits}: {p.blocks} blocks, "
+                              f"{ms!r} ms"
+                              + (" (qconv_plan)" if p == plan else ""))
+        out["shapes"].append(row)
+    sets = {name: (lambda q=q: [q.cuda_qconv(*a) for a in args])
+            for name, q in mods.items()}
+    out["set_graph_ms"] = in_turns(
+        sets, lambda f: chip_smoke._graph_ms(f, reps=1), rounds)
+    out["launches"] = {name: launches(mods[name], f)
+                       for name, f in sets.items()}
+    print(f"qconv, the {len(args)} convs of a forward: device ms from a "
+          f"CUDA graph, in turns {out['set_graph_ms']!r}; launches "
+          f"{out['launches']}")
+    # the quantization ahead of those convs: the plain pass against the
+    # kernel, on the same activations
+    xs = [x for _, x in calls]
+    for x in xs:
+        q, sx = kq.cuda_quantize_nhwc(x)
+        wq, wsx = kq.quantize_nhwc_plain(x)
+        if not (torch.equal(q, wq) and torch.equal(sx, wsx)):
+            raise AssertionError(f"quantize {tuple(x.shape)}: kernel and "
+                                 f"plain differ")
+    quant = dict(old=lambda: [kq.quantize_nhwc_plain(x) for x in xs],
+                 new=lambda: [kq.cuda_quantize_nhwc(x) for x in xs])
+    out["quantize_graph_ms"] = in_turns(
+        quant, lambda f: chip_smoke._graph_ms(f, reps=1), rounds)
+    # each input read once, one code written per real element (not the
+    # stem's padding of 3 channels to 16), the scales
+    nbytes = sum(x.numel() * x.element_size() + x.numel() + x.shape[0] * 4
+                 for x in xs)
+    out["quantize_bound_ms"] = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    print(f"quantize, ahead of the {len(xs)} convs (codes and scales "
+          f"bit-equal): device ms from a CUDA graph, in turns (old = the "
+          f"plain pass, new = the kernel) {out['quantize_graph_ms']!r}; "
+          f"bound {out['quantize_bound_ms']!r} ms ({nbytes / 1e6:.1f} MB, "
+          f"each input read once, the codes and scales written)")
+    return out
+
+
 def sass_histogram():
     """{kernel: {opcode: count}} of the new libraries' SASS."""
     import collections
@@ -242,7 +357,10 @@ def main():
                     help="rounds of the old,new,new,old turns")
     ap.add_argument("--sass", action="store_true",
                     help="print the new kernels' SASS opcode counts")
+    ap.add_argument("--kernels", default="jacobi,groupnorm,qconv",
+                    help="which kernels to time (comma-separated)")
     args = ap.parse_args()
+    which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: needs a CUDA card")
     from panodepth_torch import MergeConfig
@@ -251,14 +369,20 @@ def main():
     _, smi = chip_smoke.phase_device()
     _build.build()
     sass = sass_histogram() if args.sass else None
-    old_kj, old_kg = (load_old_kernels(args.old_tree) if args.old_tree
-                      else (None, None))
+    old_kj, old_kg, old_kq = (load_old_kernels(args.old_tree)
+                              if args.old_tree else (None, None, None))
     cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
+    res = {}
     with torch.no_grad():
-        jac = jacobi_ab(old_kj, cfg, args.rounds, args.sweep)
-        gn = group_norm_ab(old_kg, args.rounds, args.sweep)
+        if "jacobi" in which:
+            res["jacobi"] = jacobi_ab(old_kj, cfg, args.rounds, args.sweep)
+        if "groupnorm" in which:
+            res["group_norm"] = group_norm_ab(old_kg, args.rounds,
+                                              args.sweep)
+        if "qconv" in which:
+            res["qconv"] = qconv_ab(old_kq, args.rounds, args.sweep)
     print(smi)
-    print(json.dumps(dict(card=smi, jacobi=jac, group_norm=gn, sass=sass)))
+    print(json.dumps(dict(card=smi, sass=sass, **res)))
 
 
 if __name__ == "__main__":

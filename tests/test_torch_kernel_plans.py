@@ -387,3 +387,213 @@ def test_grad_on_the_cpu_routes_through_the_twin():
     tnorm.set_route(m, "kernel")
     with pytest.raises(RuntimeError, match="no backward"):
         m(x)
+
+
+# --- qconv's launch plan (kernels/qconv.qconv_plan) and the quantization ---
+
+# the 21 int8 conv shapes of the zoo GN perspective net on 15 views at
+# 256x256: (H, W, Cin, Cout, k, stride) of the conv's input
+GN_INT8_SHAPES = [
+    (256, 256, 3, 32, 7, 2), (128, 128, 32, 64, 3, 2), (64, 64, 64, 64, 3, 1),
+    (128, 128, 32, 64, 1, 2), (64, 64, 64, 128, 3, 2),
+    (32, 32, 128, 128, 3, 1), (64, 64, 64, 128, 1, 2),
+    (32, 32, 128, 256, 3, 2), (16, 16, 256, 256, 3, 1),
+    (32, 32, 128, 256, 1, 2), (16, 16, 256, 512, 3, 2),
+    (8, 8, 512, 512, 3, 1), (16, 16, 256, 512, 1, 2), (8, 8, 512, 128, 3, 1),
+    (16, 16, 128, 128, 3, 1), (16, 16, 256, 128, 3, 1),
+    (64, 64, 128, 128, 3, 1), (64, 64, 64, 128, 3, 1),
+    (128, 128, 128, 128, 3, 1), (128, 128, 128, 64, 3, 1),
+    (256, 256, 64, 32, 3, 1)]
+# odd shapes (N, H, W, Cin, Cout, k, stride): N = 1, widths off the tile
+ODD_QCONV = [(1, 7, 11, 16, 8, 1, 2), (3, 15, 13, 40, 64, 3, 2),
+             (2, 9, 9, 512, 136, 3, 1), (1, 64, 64, 3, 32, 7, 2),
+             (2, 8, 8, 16, 65, 3, 1)]
+QCONV_CASES = [(15,) + s for s in GN_INT8_SHAPES] + ODD_QCONV
+
+
+def test_gn_int8_shapes_are_the_nets_own():
+    """The table above is the int8 GN net's: every QConv call of a forward
+    (at 64x64, so the sizes are a quarter of 256x256's)."""
+    from panodepth_torch.models import layers, quantize
+    from panodepth_torch.models.perspective import PerspectiveDepthNet
+
+    net = PerspectiveDepthNet()
+    layers.init_params(net, torch.Generator().manual_seed(0))
+    qnet = quantize.quantize_perspective(net)
+    seen = set()
+    hooks = [m.register_forward_pre_hook(lambda mod, a: seen.add((
+        4 * a[0].shape[2], 4 * a[0].shape[3], a[0].shape[1],
+        mod.kernel_q.shape[0], mod.kernel_q.shape[2], mod.strides[0])))
+        for m in quantize.qconvs(qnet)]
+    with torch.no_grad():
+        qnet(torch.rand(1, 64, 64, 3))
+    for h in hooks:
+        h.remove()
+    assert seen == set(GN_INT8_SHAPES) and len(GN_INT8_SHAPES) == 21
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride", QCONV_CASES)
+def test_qconv_plan_tiles_cover_the_gemm(n, h, w, cin, cout, k, stride):
+    """The tiles cover M, N and K once; the narrowest tile that holds Cout;
+    K split only where the tiles number fewer than the SMs, into splits
+    of at least MIN_SPLIT_KTILES K tiles, none empty, and no more work
+    blocks than SMs; shared memory and the workspace as the kernel takes
+    them."""
+    from panodepth_torch.kernels import qconv as kq
+
+    cinp = -(-cin // kq.CIN_ALIGN) * kq.CIN_ALIGN
+    p = kq.qconv_plan(n, h, w, cinp, cout, k, k, stride, stride)
+    ho, wo = -(-h // stride), -(-w // stride)
+    assert p.m == n * ho * wo and p.ktaps == k * k * cinp
+    assert (p.m_tiles - 1) * kq.BM < p.m <= p.m_tiles * kq.BM
+    assert (p.n_tiles - 1) * p.bn < cout <= p.n_tiles * p.bn
+    assert (p.ktiles - 1) * kq.BK < p.ktaps <= p.ktiles * kq.BK
+    per = p.ktiles_per_split
+    assert (p.splits - 1) * per < p.ktiles <= p.splits * per
+    assert p.bn == min([t for t in kq.TILE_N if cout <= t] + [128])
+    if p.splits > 1:
+        assert p.tiles < kq.SMS and p.blocks <= kq.SMS
+        assert per >= kq.MIN_SPLIT_KTILES
+    else:
+        assert p.tiles >= kq.SMS or p.ktiles < 2 * kq.MIN_SPLIT_KTILES \
+            or p.tiles * 2 > kq.SMS
+    assert kq.MIN_STAGES <= p.stages <= kq.MAX_STAGES
+    assert p.smem_bytes <= kq.SMEM_MAX
+    assert p.workspace_bytes == (0 if p.splits == 1 else 4 * (
+        -(-p.tiles // 4) * 4 + p.tiles * p.splits * kq.BM * p.bn))
+
+
+def test_qconv_plan_splits_the_small_layers_of_the_net():
+    """At 15 views the 16x16 and 8x8 layers split K (8x8, 512 -> 512:
+    M = 960, K = 4608, 32 tiles, 4 splits, 128 blocks); the 32x32 and
+    larger layers have a tile an SM or more and do not."""
+    from panodepth_torch.kernels import qconv as kq
+
+    for h, w, cin, cout, k, s in GN_INT8_SHAPES:
+        p = kq.qconv_plan(15, h, w, -(-cin // 16) * 16, cout, k, k, s, s)
+        if h // s >= 32:
+            assert p.splits == 1, (h, cin, cout, k, s)
+        elif k == 3:
+            assert p.splits > 1, (h, cin, cout, k, s)
+    p = kq.qconv_plan(15, 8, 8, 512, 512, 3, 3, 1, 1)
+    assert (p.m, p.ktaps, p.tiles, p.splits, p.blocks) == (
+        960, 4608, 32, 4, 128)
+
+
+def _emulate_qconv_sums(xq, wq, kernel, strides, pads, plan):
+    """The kernel's blocks in numpy: each (tile, split) multiplies its
+    rows of the implicit im2col (zero where the pad falls or past K) by
+    its tile's weight rows over its K tiles, and the splits of a tile are
+    added; returns the (N, Cout, Ho, Wo) int32 sums."""
+    from panodepth_torch.kernels import qconv as kq
+
+    kh, kw = kernel
+    n, h, w, cinp = xq.shape
+    (t, b), (l, r) = pads
+    x = np.pad(xq.numpy().astype(np.int64), ((0, 0), (t, b), (l, r), (0, 0)))
+    ho = (h + t + b - kh) // strides[0] + 1
+    wo = (w + l + r - kw) // strides[1] + 1
+    cols = np.stack([x[:, i:i + strides[0] * ho:strides[0],
+                       j:j + strides[1] * wo:strides[1], :]
+                     for i in range(kh) for j in range(kw)], axis=3)
+    a = np.zeros((plan.m_tiles * kq.BM, plan.ktiles * kq.BK), np.int64)
+    a[:plan.m, :plan.ktaps] = cols.reshape(n * ho * wo, -1)
+    bmat = np.zeros((plan.n_tiles * plan.bn, plan.ktiles * kq.BK), np.int64)
+    bmat[:wq.shape[0], :wq.shape[1]] = wq.numpy()
+    out = np.zeros((a.shape[0], bmat.shape[0]), np.int64)
+    per = plan.ktiles_per_split
+    for item in range(plan.blocks):
+        split, tile = item % plan.splits, item // plan.splits
+        bm = (tile % plan.m_tiles) * kq.BM
+        bn = (tile // plan.m_tiles) * plan.bn
+        ks = slice(split * per * kq.BK,
+                   min(plan.ktiles, (split + 1) * per) * kq.BK)
+        out[bm:bm + kq.BM, bn:bn + plan.bn] += (
+            a[bm:bm + kq.BM, ks] @ bmat[bn:bn + plan.bn, ks].T)
+    out = out[:plan.m, :wq.shape[0]].reshape(n, ho, wo, -1)
+    return torch.tensor(out.transpose(0, 3, 1, 2).astype(np.int32))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride,splits", [
+    (2, 8, 8, 512, 64, 3, 1, None), (3, 15, 13, 40, 72, 3, 2, 2),
+    (1, 16, 16, 3, 32, 7, 2, 3), (2, 9, 9, 512, 136, 3, 1, 5)])
+def test_qconv_plan_emulated_equals_plain(n, h, w, cin, cout, k, stride,
+                                          splits):
+    """The plan's blocks, emulated, give the plain twin's int32 sums: the
+    tiles and splits cover every product once (the card holds the kernel
+    itself to the twin)."""
+    from panodepth_torch.kernels import qconv as kq
+
+    rng = np.random.RandomState(cin + cout)
+    x = torch.tensor(rng.normal(0, 1, (n, cin, h, w)).astype(np.float32))
+    xq, _ = kq.quantize_nhwc_plain(x)
+    wq = kq.prepare_weight(torch.tensor(
+        rng.randint(-127, 128, (cout, cin, k, k)).astype(np.int8)))
+    pads = (kq.same_pads(h, k, stride), kq.same_pads(w, k, stride))
+    plan = kq.qconv_plan(n, h, w, xq.shape[3], cout, k, k, stride, stride)
+    if splits is not None:
+        plan = kq.QConvPlan(plan.m, cout, plan.ktaps, plan.bn, plan.stages,
+                            splits)
+        assert plan.splits <= plan.ktiles
+    got = _emulate_qconv_sums(xq, wq, (k, k), (stride, stride), pads, plan)
+    assert torch.equal(got, kq.qconv_sums_plain(xq, wq, (k, k),
+                                                (stride, stride), pads))
+
+
+def _quantize_input(n, c, dtype, seed):
+    """(N, C, 5, 7) activations made with numpy: a normal image, an
+    all-zero one (sx = 1e-8/127), exact ties (k + 0.5) / 8 under amax
+    127/8 with -0.0 among them, then images at scales 1e-3 .. 1e3."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, (n, c, 5, 7)) * 10.0 ** rng.uniform(-3, 3,
+                                                             (n, 1, 1, 1))
+    x[1] = 0.0
+    ties = (rng.randint(-127, 127, (c, 5, 7)) + 0.5) / 8
+    ties.flat[0] = 127 / 8
+    ties.flat[1::4] = -0.0
+    x[2] = ties
+    return x.astype(np.float32), dtype
+
+
+@pytest.mark.parametrize("c", [3, 32, 512])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quantize_twin_matches_jax(c, dtype):
+    """``quantize_nhwc_plain`` against JAX's QConv quantization
+    (panodepth/models/perspective.py:62-67) on the CPU, op by op as
+    ``tests/test_torch_quantize.py`` runs JAX's QConv: the codes and the
+    scales bit-equal, ties, zeros, -0.0 and mixed ranges included; the
+    codes also as JAX's QConv module itself computes them (a 1x1 identity
+    conv in f32 gives back xq * sx, which rounds back to the codes).
+    Under ``jax.jit`` XLA folds the division by 127 into a product by
+    f32(1/127), which moves sx's last bit for ~5 % of amaxes (the all-zero
+    image's among them); the port keeps the true division."""
+    import jax
+    import jax.numpy as jnp
+
+    from panodepth.models import perspective as jpersp
+    from panodepth_torch.kernels import qconv as kq
+
+    x, _ = _quantize_input(5, c, dtype, seed=c)
+    xj = jnp.asarray(x.transpose(0, 2, 3, 1)).astype(getattr(jnp, dtype))
+
+    def jax_codes(v):  # perspective.py:62-67
+        xf = v.astype(jnp.float32)
+        sx = jnp.max(jnp.abs(xf), axis=(1, 2, 3), keepdims=True)
+        sx = jnp.maximum(sx, 1e-8) / 127.0
+        return jnp.clip(jnp.round(xf / sx), -127, 127).astype(jnp.int8), sx
+
+    jq, jsx = jax_codes(xj)
+    xt = torch.tensor(np.asarray(xj.astype(jnp.float32))).permute(
+        0, 3, 1, 2).to(getattr(torch, dtype))
+    q, sx = kq.quantize_nhwc_plain(xt)
+    assert q.shape == (5, 5, 7, -(-c // 16) * 16) and not q[..., c:].any()
+    np.testing.assert_array_equal(q[..., :c].numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sx.numpy().view(np.int32),
+                                  np.asarray(jsx).ravel().view(np.int32))
+    assert float(sx[1]) == np.float32(np.float32(1e-8) / np.float32(127))
+    conv = jpersp.QConv(c, (1, 1), use_bias=False, dtype=jnp.float32)
+    params = {"params": {"kernel_q": jnp.eye(c, dtype=jnp.int8)[None, None],
+                         "scale": jnp.ones((c,), jnp.float32)}}
+    y = np.asarray(conv.apply(params, xj))
+    back = np.rint(y / np.asarray(jsx)).astype(np.int8)
+    np.testing.assert_array_equal(q[..., :c].numpy(), back)

@@ -582,3 +582,162 @@ def test_cuda_qconv_small_net_shapes_bit_equal(cuda_device):
             assert torch.equal(y, kq.qconv_plain(*args))
         plain = layers.set_qconv_route(qnet, "torch")(rgb)
         assert torch.equal(got, plain)
+
+
+# --- the activation's quantization (csrc/quantize.cu) and qconv's plans ---
+
+
+def _activation(n, c, h, w, dtype, seed, device="cpu"):
+    """An NCHW activation made with numpy from ``seed``: image 0 normal,
+    image 1 all zero (sx = 1e-8/127), image 2 on exact rounding ties
+    (amax 127/8, so sx = 1/8 and (k + 0.5)/8 divides to k + 0.5) with
+    -0.0 among them, the rest normal at scales 1e-3 .. 1e3."""
+    rng = np.random.RandomState(seed)
+    x = rng.normal(0, 1, (n, c, h, w)) * 10.0 ** rng.uniform(-3, 3, (n, 1, 1, 1))
+    if n > 1:
+        x[1] = 0.0
+    if n > 2:
+        ties = (rng.randint(-127, 127, (c, h, w)) + 0.5) / 8
+        ties.flat[0] = 127 / 8
+        ties.flat[1::5] = -0.0
+        x[2] = ties
+    return torch.tensor(x.astype(np.float32)).to(dtype).to(device)
+
+
+def test_quantize_auto_on_cpu_routes_to_plain_and_counts_no_launch():
+    from panodepth_torch.kernels import qconv as kq
+
+    x = _activation(3, 5, 4, 6, torch.float32, seed=3)
+    before = kq.QUANTIZE_LAUNCHES
+    q, sx = kq.quantize_nhwc(x)
+    assert kq.QUANTIZE_LAUNCHES == before
+    want_q, want_sx = kq.quantize_activation(x)
+    assert torch.equal(q, kq.to_nhwc(want_q)) and torch.equal(sx, want_sx)
+    assert q.shape == (3, 4, 6, 16) and not q[..., 5:].any()
+    assert kq.resolve("torch", "quantize") is kq.quantize_nhwc_plain
+    assert kq.resolve("kernel", "quantize") is kq.cuda_quantize_nhwc
+    with pytest.raises(ValueError, match="qconv route"):
+        kq.quantize_nhwc(x, "xla")
+    with pytest.raises(ValueError, match="op must be"):
+        kq.resolve("auto", "relu")
+    assert "quantize" in _build.SOURCES
+    assert _build.library_path("quantize").name.startswith("libquantize-")
+
+
+@pytest.mark.parametrize("bad", ["cpu_tensor", "f64", "three_d", "empty"])
+def test_cuda_quantize_refuses_bad_arguments(bad):
+    from panodepth_torch.kernels import qconv as kq
+
+    on_card = bad != "cpu_tensor" and torch.cuda.is_available()
+    x = _activation(2, 3, 4, 4, torch.float32, seed=4,
+                    device="cuda" if on_card else "cpu")
+    err = TypeError if bad in ("cpu_tensor", "f64") or not on_card \
+        else ValueError
+    if bad == "f64":
+        x = x.double()
+    elif bad == "three_d":
+        x = x[0]
+    elif bad == "empty":
+        x = x[:, :, :0]
+    before = kq.QUANTIZE_LAUNCHES
+    with pytest.raises(err):
+        kq.cuda_quantize_nhwc(x)
+    assert kq.QUANTIZE_LAUNCHES == before
+
+
+def test_fake_implementations_under_export():
+    """A QConv's two operators, traced by ``torch.export`` on fake CUDA
+    tensors (no card needed): one node each, with the plain twins' output
+    shapes and types."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from panodepth_torch.kernels import qconv as kq
+
+    pads = (kq.same_pads(17, 7, 2),) * 2
+
+    class OneQConv(torch.nn.Module):
+        def forward(self, x, wq, scale, bias):
+            xq, sx = kq.quantize_nhwc(x, "kernel")
+            return kq.resolve("kernel")(xq, wq, sx, scale, bias, (7, 7),
+                                        (2, 2), pads, torch.bfloat16)
+
+    with FakeTensorMode():
+        args = (torch.empty(2, 3, 17, 17, device="cuda"),
+                torch.empty(8, 64 * 13, dtype=torch.int8, device="cuda"),
+                torch.empty(8, device="cuda"), torch.empty(8, device="cuda"))
+        ep = torch.export.export(OneQConv(), args)
+    nodes = {str(n.target): n.meta["val"] for n in ep.graph.nodes
+             if n.op == "call_function" and "panodepth_torch" in
+             str(n.target)}
+    assert set(nodes) == {f"{kq.OPS}.quantize_nhwc.default",
+                          f"{kq.OPS}.qconv.default"}
+    q, sx = nodes[f"{kq.OPS}.quantize_nhwc.default"]
+    want_q, want_sx = kq.quantize_nhwc_plain(torch.zeros(2, 3, 17, 17))
+    assert (q.shape, q.dtype, sx.shape, sx.dtype) == (
+        want_q.shape, want_q.dtype, want_sx.shape, want_sx.dtype)
+    y = nodes[f"{kq.OPS}.qconv.default"]
+    assert y.shape == (2, 8, 9, 9) and y.dtype == torch.bfloat16
+    assert y.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w", [(4, 3, 17, 23), (4, 32, 8, 8),
+                                     (3, 512, 4, 4), (1, 40, 9, 130),
+                                     (5, 64, 66, 66), (3, 128, 128, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_quantize_bit_equal_to_plain(cuda_device, n, c, h, w, dtype):
+    """The kernels' codes and scales against the plain twin's on the card:
+    bit-equal, ties, zeros, -0.0 and mixed ranges included, each call two
+    launches; a strided input is made contiguous first."""
+    from panodepth_torch.kernels import qconv as kq
+
+    x = _activation(n, c, h, w, dtype, seed=n * c + h, device=cuda_device)
+    for arg in (x, x.transpose(2, 3).contiguous().transpose(2, 3)):
+        before = kq.QUANTIZE_LAUNCHES
+        q, sx = kq.cuda_quantize_nhwc(arg)
+        torch.cuda.synchronize()
+        assert kq.QUANTIZE_LAUNCHES == before + kq.QUANTIZE_KERNELS
+        want_q, want_sx = kq.quantize_nhwc_plain(x)
+        assert torch.equal(sx.view(torch.int32), want_sx.view(torch.int32))
+        assert torch.equal(q, want_q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,stride,pads", [
+    (1, 64, 64, 3, 32, 7, 2, None), (2, 9, 9, 512, 136, 3, 1, None),
+    (1, 8, 8, 512, 512, 3, 1, None), (3, 15, 13, 40, 64, 3, 2,
+                                      ((0, 2), (1, 0))),
+    (1, 7, 11, 16, 8, 1, 2, ((0, 0), (0, 0))),
+    (2, 6, 64, 64, 24, 3, 1, ((0, 2), (2, 0)))])
+def test_cuda_qconv_plans_bit_equal(cuda_device, n, h, w, cin, cout, k,
+                                    stride, pads):
+    """Every form of the kernel (32-, 64- and 128-wide tiles, rings of 3
+    to 6 stages, K split 1 to 4 ways where it has the tiles) against the
+    plain twin: sums and output bit-equal, at N = 1, the stem's 7x7/2,
+    explicit asymmetric pads and widths off the tile."""
+    from panodepth_torch.kernels import qconv as kq
+
+    xq, wq, sx, scale, bias, kern, strides, same = _qconv_case(
+        n, h, w, cin, cout, k, stride, seed=cin + cout, device=cuda_device)
+    pads = same if pads is None else pads
+    want_acc = kq.qconv_sums_plain(xq, wq, kern, strides, pads)
+    want = kq.qconv_plain(xq, wq, sx, scale, bias, kern, strides, pads)
+    base = kq.qconv_plan(n, h, w, xq.shape[3], cout, k, k, stride, stride,
+                         pads)
+    tried = set()
+    for bn in kq.TILE_N:
+        for stages in (3, 4, 6):
+            for splits in (1, 2, 3, 4, base.splits):
+                plan = kq.QConvPlan(base.m, cout, base.ktaps, bn, stages,
+                                    splits)
+                if splits > plan.ktiles or (bn, stages, splits) in tried:
+                    continue
+                tried.add((bn, stages, splits))
+                y, acc = kq.run_plan(xq, wq, sx, scale, bias, kern, strides,
+                                     pads, plan=plan)
+                torch.cuda.synchronize()
+                assert torch.equal(acc, want_acc), plan
+                assert torch.equal(y, want), plan
+    with pytest.raises(ValueError, match="does not take"):
+        kq.run_plan(xq, wq, sx, scale, bias, kern, strides, pads,
+                    plan=kq.QConvPlan(base.m, cout, base.ktaps, 96, 4, 1))

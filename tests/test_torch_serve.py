@@ -207,6 +207,32 @@ def test_load_gives_the_saved_program(merge):
     assert got.graph_signature == want.graph_signature
 
 
+def test_int8_program_names_both_kernel_operators():
+    """A ``--persp-int8`` program on the card holds each QConv as two
+    kernel nodes, ``panodepth_torch::quantize_nhwc`` and
+    ``panodepth_torch::qconv``: one QConv's ops traced by ``torch.export``
+    on fake CUDA tensors (no card needed) and counted by
+    ``serve.kernel_nodes`` under the names ``serve.KERNEL_OPS`` lists."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from panodepth_torch.kernels import qconv as kq
+
+    class QConvOps(torch.nn.Module):
+        def forward(self, x, wq, scale, bias):
+            xq, sx = kq.quantize_nhwc(x, "kernel")
+            return kq.resolve("kernel")(xq, wq, sx, scale, bias, (3, 3),
+                                        (1, 1), ((1, 1), (1, 1)))
+
+    with FakeTensorMode():
+        ep = torch.export.export(QConvOps(), (
+            torch.empty(1, 32, 8, 8, device="cuda"),
+            torch.empty(16, 320, dtype=torch.int8, device="cuda"),
+            torch.empty(16, device="cuda"), torch.empty(16, device="cuda")))
+    ops = (f"{kq.OPS}::qconv", f"{kq.OPS}::quantize_nhwc")
+    assert set(ops) <= set(tserve.KERNEL_OPS)
+    assert tserve.kernel_nodes(ep) == {op: 1 for op in ops}
+
+
 def test_export_refuses_persp_int8_and_cuda_without_card(tmp_path, capsys):
     """``export-e2e --persp-int8`` (refused until it was ported) exports the
     zoo GN perspective net's int8 graph beside FastPanoNet on the CPU (two

@@ -21,7 +21,13 @@ Phases, each printing its elapsed seconds:
 4. merge   — the main path, ``merge_arrays`` at full width (5fold_leres,
              15 views, 2048 wide) on a synthetic scene, through the kernel
              (launches counted), against the plain-Jacobi path, and scored
-             against the scene's ground truth.
+             against the scene's ground truth.  Then the library functions
+             the main path does not call, each once on the card against
+             the port on the CPU: ``fit_poly`` (degrees 1-4, 2^20
+             samples), ``fit_reciprocal``, ``fit_cubic_global`` (the
+             merge's result), ``solve_depth_by_smoothing`` (at 512 wide,
+             bit-equal), ``resample_view``, ``depth_view_to_equirect``,
+             ``rotate_equirect`` and ``extract_view_elevated`` at 2048.
 5. cli     — ``python -m panodepth_torch 0`` (``cli.main``) on two such
              scenes written as files, then again to check resume; then
              ``python -m panodepth_torch.analyze`` (``analyze.main``) on the
@@ -455,17 +461,34 @@ def make_scene(cfg, seed):
                        + 0.08 * np.sin(6 * azi + phase[2]) * np.sin(5 * zen), 0, 1)
 
     layout = cfg.layout
-    gt = to_uint16(_equirect(cfg.out_width, cfg.out_height, detail))
-    base = to_uint16(_equirect(cfg.out_width // 2, cfg.out_height // 2, artifact))
     windows = geometry.layout_windows(layout.fovs)
-    views = []
-    for v in range(layout.num_views):
+    # each view's distortion, drawn in view order
+    draws = [(rng.uniform(0.72, 0.88), rng.uniform(0.02, 0.08))
+             for _ in range(layout.num_views)]
+
+    def view(v):
         h, w = _view_shape(layout.fovs[v], 1024)
         xg, yg = np.meshgrid(np.arange(w) / (w - 1), np.arange(h) / (h - 1))
         azi, zen = geometry.xy_to_spherical(geometry.window_at(windows, v), xg, yg)
-        scale, offset = rng.uniform(0.72, 0.88), rng.uniform(0.02, 0.08)
-        views.append(to_uint16(detail(azi, zen) * scale + offset))
+        scale, offset = draws[v]
+        return to_uint16(detail(azi, zen) * scale + offset)
+
+    # numpy's ufuncs drop the GIL: the maps are made on threads
+    gt, base, *views = _threaded(
+        [lambda: to_uint16(_equirect(cfg.out_width, cfg.out_height, detail)),
+         lambda: to_uint16(_equirect(cfg.out_width // 2,
+                                     cfg.out_height // 2, artifact))]
+        + [lambda v=v: view(v) for v in range(layout.num_views)])
     return dict(gt=gt, base=base, views=views)
+
+
+def _threaded(calls):
+    """The results of the no-argument ``calls``, run on a pool of threads
+    (host numpy work that releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return [f.result() for f in [pool.submit(c) for c in calls]]
 
 
 def _as01(u16):
@@ -531,7 +554,128 @@ def phase_merge(cfg, scene):
           f"to synchronize, median of 5): {warm_ms!r} ms; runs {times[1:]!r}")
     _profile_merge(lambda: merge_arrays(emap, pmaps, cfg, jacobi="auto"),
                    warm_ms)
-    return out.cpu().numpy(), launches, warm_ms
+    merged = out.cpu().numpy()
+    library = _library_checks(cfg, scene, merged, emap, pmaps)
+    return merged, launches, warm_ms, library
+
+
+# the library functions of phase merge, the card against the port on the
+# CPU on the same inputs: fitted curves on a grid (f32 sums in another
+# order), bilinear samplers (f32 trigonometry, and the card divides by a
+# Python number as a multiply by its reciprocal), nearest samplers (the
+# share of pixels whose tap crossed a cell boundary by that ulp); the
+# smoother is the same f32 arithmetic, held bit-equal
+LIB_CURVE_ABS = 1e-4
+LIB_BILINEAR_ABS = 1e-4
+LIB_NEAREST_SHARE = 1e-3
+
+
+def _library_checks(cfg, scene, merged0, emap, pmaps):
+    """Each function of the JAX package's single-device surface that the
+    main path does not call, once on the card and once on the CPU on the
+    same inputs: ``fit_poly`` (degrees 1-4), ``fit_reciprocal``,
+    ``fit_cubic_global``, ``solve_depth_by_smoothing`` (at 512 wide: its
+    500 rounds on the CPU), ``resample_view``, ``rotate_equirect``,
+    ``extract_view_elevated`` and ``depth_view_to_equirect`` (the last four
+    at 2048 wide)."""
+    from panodepth_torch import MergeConfig, fusion, geometry
+    from panodepth_torch import registration as reg
+    from panodepth_torch.ops import projection, sampling
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.RandomState(SEED)
+    grid = np.linspace(0.05, 0.95, 181)
+    found = {}
+
+    def once(fn, *args):
+        """fn on the card (host ms to synchronize) and on the CPU."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(*[a.to(dev) for a in args])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return card, fn(*[a.to(cpu) for a in args]), ms
+
+    def held(name, value, bar, ms, note=""):
+        found[name] = dict(value=value, bar=bar, ms=ms)
+        print(f"merge library: {name}: {value!r} (bar {bar!r}) in "
+              f"{ms:.2f} ms on the card{note}")
+        if not value <= bar:
+            raise AssertionError(f"{name} on the card differs from the CPU "
+                                 f"by {value!r}, over its bar {bar!r}")
+
+    def curve_gap(a, b):
+        a, b = (np.asarray(t.detach().cpu(), np.float64) for t in (a, b))
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            return float("inf")
+        return float(np.abs(np.polyval(a, grid) - np.polyval(b, grid)).max())
+
+    x = torch.tensor(rng.uniform(0.05, 0.95, 1 << 20).astype(np.float32))
+    ones = torch.ones_like(x)
+    for deg in (1, 2, 3, 4):
+        true = rng.uniform(-0.5, 0.8, deg + 1)
+        y = torch.tensor((np.polyval(true, x.numpy().astype(np.float64))
+                          + rng.normal(0, 1e-3, x.shape[0])).astype(
+                              np.float32))
+        card, host, ms = once(lambda a, b, w: reg.fit_poly(a, b, w, deg),
+                              x, y, ones)
+        held(f"fit_poly degree {deg}, 2^20 samples, curve max abs",
+             curve_gap(card, host), LIB_CURVE_ABS, ms)
+    xr = torch.tensor(rng.uniform(0.1, 0.9, 4096).astype(np.float32))
+    yr = 0.7 / (1.3 * xr + 0.4) + 0.05
+    card, host, ms = once(reg.fit_reciprocal, xr, yr, torch.ones_like(xr))
+    g = torch.tensor(grid.astype(np.float32))
+    gap = float((reg.apply_reciprocal(g, card.cpu())
+                 - reg.apply_reciprocal(g, host)).abs().max())
+    held("fit_reciprocal, 50 LM steps, curve max abs", gap, LIB_CURVE_ABS,
+         ms)
+    result01 = torch.tensor(merged0.astype(np.float32) / np.float32(65535.0))
+    card, host, ms = once(lambda r, e: reg.fit_cubic_global(
+        r, e, cfg.zenith_range), result01, emap.cpu())
+    held("fit_cubic_global (the merge's 1024x2048 result against its "
+         "baseline), curve max abs", curve_gap(card, host), LIB_CURVE_ABS,
+         ms)
+
+    cfg512 = MergeConfig(layout_name="5fold_leres", out_width=512)
+    plan512 = fusion.build_fusion_plan(cfg512)
+    views = pmaps.cpu()
+    (c_u16, c_buf), (h_u16, h_buf), ms = once(
+        lambda p: fusion.solve_depth_by_smoothing(p, plan512), views)
+    held("solve_depth_by_smoothing (512x256, 500 rounds, 15 views "
+         "988x1024), u16 max diff",
+         int((c_u16.cpu().to(torch.int32) - h_u16.to(torch.int32)).abs()
+             .max()), 0, ms,
+         f"; buffer max abs {float((c_buf.cpu() - h_buf).abs().max())!r}")
+
+    def nearest_share(card, host):
+        return float((card.cpu() != host).float().mean())
+
+    plan = fusion.build_fusion_plan(cfg)
+    v = 7
+    win = geometry.window_at(plan.windows, v)
+    card, host, ms = once(lambda p: fusion.resample_view(
+        p, win, cfg.out_width, cfg.out_height), views[v])
+    held("resample_view (view 7 onto 2048x1024), share of pixels that "
+         "differ", nearest_share(card, host), LIB_NEAREST_SHARE, ms)
+    fov = cfg.layout.fovs[v]
+    (card, card_in), (host, host_in), ms = once(
+        lambda p: projection.depth_view_to_equirect(p, fov, cfg.out_width,
+                                                    cfg.out_height),
+        views[v])
+    held("depth_view_to_equirect (view 7 onto 2048x1024), share of pixels "
+         "that differ", nearest_share(card, host), LIB_NEAREST_SHARE, ms,
+         f"; inside masks differ at {nearest_share(card_in, host_in)!r}")
+    gt01 = torch.tensor(_as01(scene["gt"]))
+    card, host, ms = once(lambda i: sampling.rotate_equirect(
+        i, yaw=0.3, pitch=0.2, roll=-0.1), gt01)
+    held("rotate_equirect (the 1024x2048 gt), max abs",
+         float((card.cpu() - host).abs().max()), LIB_BILINEAR_ABS, ms)
+    card, host, ms = once(lambda i: projection.extract_view_elevated(
+        i, fov, 1024), gt01)
+    held(f"extract_view_elevated (view 7, {tuple(host.shape)} from the gt), "
+         f"max abs", float((card.cpu() - host).abs().max()),
+         LIB_BILINEAR_ABS, ms)
+    return found
 
 
 def _hold_tf32_flags(label, want, run):
@@ -1112,6 +1256,183 @@ def _before_repair(persp, base, rgbs, cfg):
                                                         each=each / 2))
 
 
+# the views of each gather table on the card against the port on the CPU:
+# the taps' f32 ray angles and weights differ by an ulp, and bilinear
+# sampling is continuous (tests/test_torch_sampling.py: 1e-4 against JAX)
+TABLE_VIEWS_ABS = 1e-4
+# _percentile99's top-k forms against the sort: lo + f (hi - lo) against
+# lo (1 - f) + hi f, an f32 ulp or two of the value
+P99_REL = 1e-6
+
+
+def _resize_ms(events):
+    """Device ms and launches of the antialiased resizes in a profile."""
+    hits = [(ms, n) for ms, n, name in events
+            if "upsample" in name or "interp" in name or "_aa" in name]
+    return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+
+def _e2e_box_feed(full, rgbs_u8, want):
+    """The graph with ``PANODEPTH_BASE_FEED=box`` on the u8 panoramas: a
+    capture of its own beside the bilinear graph's on the same input (the
+    variable is in the graph's key), its launches as the bilinear
+    graph's, its replay bit-equal to its eager stages, its bf16 feed equal
+    to the CPU's; both graphs timed in turns and profiled."""
+    from panodepth_torch.e2e import box_feed
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+
+    dev = torch.device("cuda")
+    u8 = torch.stack([torch.from_numpy(r) for r in rgbs_u8]).to(dev)
+    b = u8.shape[0]
+
+    def feed(value):
+        if value is None:
+            os.environ.pop("PANODEPTH_BASE_FEED", None)
+        else:
+            os.environ["PANODEPTH_BASE_FEED"] = value
+
+    outs, launches = {}, {}
+    try:
+        for name, value in (("bilinear", None), ("box", "box")):
+            feed(value)
+            kj.LAUNCHES = kg.LAUNCHES = 0
+            outs[name] = full(u8)
+            torch.cuda.synchronize()
+            launches[name] = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+        eager = full.eager(u8)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, e) for a, e in zip(outs["box"], eager))
+        card_feed = box_feed(u8, (256, 512))
+        host_feed = box_feed(u8.cpu(), (256, 512))
+        feed_same = torch.equal(card_feed.cpu(), host_feed)
+        d = (outs["box"][0].to(torch.int32)
+             - outs["bilinear"][0].to(torch.int32)).abs()
+        print(f"e2e box feed: u8 {tuple(u8.shape)}; launches at the capture "
+              f"{launches['box']} (the bilinear graph's on the same input "
+              f"{launches['bilinear']}, expected {want}); the replay "
+              f"bit-equal to the eager stages: {same}; the bf16 feed "
+              f"{tuple(card_feed.shape)} on the card bit-equal to the CPU's: "
+              f"{feed_same}; u16 distance from the bilinear graph (max, "
+              f"mean) ({int(d.max())}, {float(d.float().mean())!r})")
+        if launches["box"] != launches["bilinear"] or \
+                launches["box"] != want:
+            raise AssertionError(f"box-feed graph launches {launches}")
+        if not same:
+            raise AssertionError("the box-feed graph differs from its eager "
+                                 "stages")
+        if not feed_same:
+            raise AssertionError("the box feed on the card differs from the "
+                                 "CPU's")
+        if int(d.max()) == 0:
+            raise AssertionError("the box feed changed nothing: the graph "
+                                 "of the bilinear feed was replayed")
+        times = {}
+        for name, value in (("bilinear", None), ("box", "box"),
+                            ("box", "box"), ("bilinear", None)):
+            feed(value)
+            times.setdefault(name, []).append(_timed(lambda: full(u8)))
+        found = {}
+        for name, value in (("bilinear", None), ("box", "box")):
+            feed(value)
+            host = float(np.median(times[name]))
+            busy, events = _device_profile(lambda: full(u8))
+            rs_ms, rs_n = _resize_ms(events)
+            found[name] = dict(ms_per_pano=host / b, turns=times[name],
+                               busy_ms_per_pano=busy / b,
+                               idle_share=1 - busy / host,
+                               resize_ms=rs_ms, resize_launches=rs_n)
+            print(f"e2e {name} feed graph (batch {b}, u8 input, in turns "
+                  f"bilinear, box, box, bilinear): {host / b!r} ms a "
+                  f"panorama, turns {times[name]!r}; device busy {busy!r} "
+                  f"ms a call, idle share {1 - busy / host!r}; antialiased "
+                  f"resizes {rs_ms!r} ms in {rs_n} launches")
+    finally:
+        feed(None)
+    return dict(found, launches=launches["box"], u16_from_bilinear=(
+        int(d.max()), float(d.float().mean())))
+
+
+def _e2e_tables(rgb_u8):
+    """One panorama's 15-view extraction from each gather table on the card
+    against the port on the CPU, ``pair16`` bit-equal to ``packed16``, and
+    each table's device ms (pack and gathers, from a CUDA graph)."""
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.ops import projection
+    from panodepth_torch.pipeline import _as01
+
+    dev = torch.device("cuda")
+    layout = MergeConfig(layout_name="5fold_leres").layout
+    (shape, idxs), = projection.view_groups(layout, 256).items()
+    fovs = layout.fovs[idxs]
+    u8 = torch.from_numpy(rgb_u8)
+
+    def extract(rgb, table):
+        src = rgb if table in projection.PACKED else _as01(rgb)
+        return projection.extract_group(projection.make_table(src, table),
+                                        fovs, shape, table)
+
+    card_u8 = u8.to(dev)
+    found, views = {}, {}
+    for table in ("f32", "bf16", "packed", "packed16", "pair16", "pair16d"):
+        views[table] = extract(card_u8, table)
+        host = extract(u8, table)
+        err = float((views[table].cpu() - host).abs().max())
+        ms = _graph_ms(lambda: extract(card_u8, table), reps=5, runs=5)
+        found[table] = dict(ms=ms, max_abs_vs_cpu=err)
+        print(f"e2e table {table}: 15 views {tuple(views[table].shape)} from "
+              f"a 1024x2048 u8 panorama, {ms!r} ms on the card (pack and "
+              f"gathers, CUDA graph of 5); against the CPU max abs {err!r} "
+              f"(bar {TABLE_VIEWS_ABS})")
+        if not err <= TABLE_VIEWS_ABS:
+            raise AssertionError(f"the {table} table's views on the card "
+                                 f"differ from the CPU's")
+    pair_same = torch.equal(views["pair16"], views["packed16"])
+    print(f"e2e table pair16 bit-equal to packed16 on the card: {pair_same}")
+    if not pair_same:
+        raise AssertionError("the pair16 views differ from packed16's")
+    return found
+
+
+def _e2e_p99(persp, rgb_u8):
+    """``_percentile99`` in each ``PANODEPTH_P99`` mode on the NF net's
+    output for one panorama's 15 views at 256x256: topk and approx against
+    sort, and each mode's device ms."""
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.models.perspective import _percentile99
+    from panodepth_torch.ops import projection
+    from panodepth_torch.ops.resize import resize_bilinear_nhwc
+
+    dev = torch.device("cuda")
+    layout = MergeConfig(layout_name="5fold_leres").layout
+    (shape, idxs), = projection.view_groups(layout, 256).items()
+    rgb = _pano_feed(rgb_u8, dev)[None]
+    views = resize_bilinear_nhwc(projection.extract_group(
+        rgb, layout.fovs[idxs], shape)[0], (256, 256))
+    with torch.no_grad():
+        flat = persp(views).reshape(len(idxs), -1)
+    found, vals = {}, {}
+    try:
+        for mode in ("sort", "topk", "approx"):
+            os.environ["PANODEPTH_P99"] = mode
+            vals[mode] = _percentile99(flat)
+            ms = _graph_ms(lambda: _percentile99(flat), reps=5, runs=5)
+            rel = float(((vals[mode] - vals["sort"]).abs()
+                         / vals["sort"].abs()).max())
+            found[mode] = dict(ms=ms, max_rel_vs_sort=rel)
+            print(f"e2e p99 {mode}: {tuple(flat.shape)} f32 -> "
+                  f"{float(vals[mode].min())!r}..{float(vals[mode].max())!r}, "
+                  f"{ms!r} ms on the card (CUDA graph of 5), max rel vs sort "
+                  f"{rel!r} (bar {P99_REL})")
+            if not rel <= P99_REL:
+                raise AssertionError(f"p99 {mode} differs from the sort")
+    finally:
+        os.environ.pop("PANODEPTH_P99", None)
+    if not torch.equal(vals["topk"], vals["approx"]):
+        raise AssertionError("p99 approx differs from topk")
+    return found
+
+
 def phase_e2e(persp, base, rgbs_u8):
     """The main path: the batched e2e graph at full width on two panoramas,
     through both kernels and replayed from CUDA graphs, against its eager
@@ -1243,7 +1564,10 @@ def phase_e2e(persp, base, rgbs_u8):
                                  "of its capture")
     else:
         print("e2e profile: the profiler saw no device time (not measured)")
-    return dict(single0=singles[0].cpu().numpy(),
+    options = dict(box=_e2e_box_feed(full, rgbs_u8, launches),
+                   tables=_e2e_tables(rgbs_u8[0]),
+                   p99=_e2e_p99(persp, rgbs_u8[0]))
+    return dict(single0=singles[0].cpu().numpy(), options=options,
                 singles=[x.cpu().numpy() for x in singles],
                 bases=bases.cpu().numpy(),
                 launches=launches, warm=warm, busy_ms=busy_ms,
@@ -1528,15 +1852,26 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     call_ms = float(np.median(times[1:]))
-    busy_ms, events = _device_profile(lambda: full(rgbs))
+    want_seen = (b * norms, b * qconvs, b * qconvs * kq.QUANTIZE_KERNELS)
+    # the profiler drops records while another process works on the card
+    # (an export child may, PERF.md section 7): a replay whose profile
+    # counts fewer launches is profiled again, up to three times, and
+    # every profile that fell short is printed
+    for attempt in range(3):
+        busy_ms, events = _device_profile(lambda: full(rgbs))
+        gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
+        q_seen = sum(n for _, n, key in events if "qconv_kernel" in key)
+        qz_seen = sum(n for _, n, key in events if "quantize_" in key)
+        if not (replay_count and busy_ms > 0) or (
+                gn_seen, q_seen, qz_seen) == want_seen:
+            break
+        print(f"families {name}: profile {attempt + 1} of the replay saw "
+              f"{(gn_seen, q_seen, qz_seen)} launches, expected {want_seen}")
     gn_ms = sum(ms for ms, _, key in events if "gn_cluster" in key)
-    gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
     q_ms = sum(ms for ms, _, key in events if "qconv_kernel" in key)
-    q_seen = sum(n for _, n, key in events if "qconv_kernel" in key)
     qz_ms = sum(ms for ms, _, key in events if "quantize_" in key)
-    qz_seen = sum(n for _, n, key in events if "quantize_" in key)
-    if replay_count and busy_ms > 0 and (gn_seen, q_seen, qz_seen) != (
-            b * norms, b * qconvs, b * qconvs * kq.QUANTIZE_KERNELS):
+    if replay_count and busy_ms > 0 and (gn_seen, q_seen,
+                                         qz_seen) != want_seen:
         raise AssertionError(f"families {name}: the replay ran {gn_seen} "
                              f"groupnorm, {q_seen} qconv and {qz_seen} "
                              f"quantize launches, expected {b * norms}, "
@@ -3051,7 +3386,8 @@ def phase_serve(cfg, scenes, persp, base, rgbs_u8, tmp, procs, trainers):
 
         # (f) the daemon: a burst of JPEG panoramas at the e2e artifact,
         # a few .npz merges at the merge artifact
-        panos = [make_rgb(SEED + 10 + i, 2048) for i in range(4)]
+        panos = _threaded([lambda i=i: make_rgb(SEED + 10 + i, 2048)
+                           for i in range(4)])
         bodies = [jpeg.encode(p, quality=95) for p in panos]
         t0 = time.perf_counter()
         decoded = [pdaemon.decode_image_rgb(b) for b in bodies]
@@ -3925,14 +4261,17 @@ def main():
         with Phase("kernel"):
             jac = phase_kernel(cfg, cfg_4096)
         with Phase("merge"):
-            scenes = [make_scene(cfg, SEED + i) for i in range(2)]
-            merged0, merge_launches, warm_ms = phase_merge(cfg, scenes[0])
+            scenes = _threaded([lambda i=i: make_scene(cfg, SEED + i)
+                                for i in range(2)])
+            merged0, merge_launches, warm_ms, library = phase_merge(
+                cfg, scenes[0])
         with Phase("cli"):
             analyzed = phase_cli(cfg, scenes, merged0)
         with Phase("groupnorm"):
             persp, _ = load_model_checkpoint(PERSP_CKPT)
             base, _ = load_model_checkpoint(BASE_CKPT)
-            rgbs = [make_rgb(SEED + i, 2048) for i in range(2)]
+            rgbs = _threaded([lambda i=i: make_rgb(SEED + i, 2048)
+                              for i in range(2)])
             gn = phase_groupnorm(base, rgbs)
         with Phase("models"):
             models = phase_models(persp, base, rgbs[0])
@@ -4057,9 +4396,11 @@ def main():
             evaluate_int8=trained["evaluate"]["gn_int8"][
                 "quantize_launches"]),
         shapes=quantized["shapes"])]
-    print(f"merge warm ms per panorama: {warm_ms!r}; e2e warm ms per "
+    print(f"merge warm ms per panorama: {warm_ms!r}; merge library: "
+          f"{library!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "
-          f"{e2e['call_ms']!r} ms per 2-panorama call; nets: {models!r}; "
+          f"{e2e['call_ms']!r} ms per 2-panorama call; e2e options: "
+          f"{e2e['options']!r}; nets: {models!r}; "
           f"stage A: {stage_a!r}; graphs: {graphs!r}; analyze: "
           f"{analyzed!r}; int8: {int8!r}; serve: {served!r}; "
           f"train: {trained!r}; card: {smi}")

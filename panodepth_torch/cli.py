@@ -24,9 +24,11 @@ and fusion.  Every zoo checkpoint runs: ``--persp-ckpt`` takes the NF
 net (``--persp-int8``: the GN net as the int8 graph), ``--baseline-ckpt``
 FastPanoNet (``zoo/fastpano_*``), the UniFuse-class net
 (``zoo/panoramic_*``), HoHoNet (``zoo/hohonet_*``), BiFuse
-(``zoo/bifuse_*``) or SliceNet (``zoo/slicenet_*``).
-Counterpart of ``panodepth/cli.py``; what is not ported yet is refused,
-never ignored.
+(``zoo/bifuse_*``) or SliceNet (``zoo/slicenet_*``); ``--extract-dtype``
+picks the views' gather table, ``--p99`` the percentile's selection, and
+``PANODEPTH_BASE_FEED=box`` the baseline CNN's box feed, as in JAX.
+Counterpart of ``panodepth/cli.py``; what is not ported yet (the
+view-parallel ``--latency`` graph) is refused, never ignored.
 """
 
 from __future__ import annotations
@@ -121,15 +123,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--extract-dtype", default=None,
                    choices=["auto", "packed", "packed16", "pair16",
                             "pair16d", "bf16", "f32"],
-                   help="model mode: view-extraction table; auto = f32 "
-                        "(the packed tables are TPU-only, not ported)")
+                   help="model mode: view-extraction gather table; auto = "
+                        "f32; bf16 samples a bf16 copy, packed one int32 "
+                        "word a pixel (exact for 8-bit sources), packed16 "
+                        "RGB565, pair16 the 565 codes of a pixel pair (the "
+                        "views of packed16), pair16d the same dithered; "
+                        "every table but f32 feeds the baseline CNN's "
+                        "resize in bf16")
     p.add_argument("--png-level", type=int, default=None, metavar="0-9",
                    help="deflate level for the 16-bit result PNGs (always "
                         "lossless); sets PANODEPTH_PNG_LEVEL. Default 1: "
                         "fastest writes; 6+ for smallest archival files")
     p.add_argument("--p99", default=None, choices=["sort", "topk", "approx"],
-                   help="model mode: the perspective net's 99th percentile; "
-                        "only the exact sort is ported")
+                   help="model mode: the perspective net's 99th percentile "
+                        "(sets PANODEPTH_P99): sort (default), topk (the "
+                        "top 1%% only), approx (the top-k JAX approximates "
+                        "on the TPU; exact here, as JAX is off the TPU)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the batch into DIR "
                         "(a Chrome trace: chrome://tracing, Perfetto)")
@@ -162,12 +171,6 @@ def _refusal(args) -> str | None:
         return ("--base-width resizes a --baseline-ckpt model's input; "
                 "baseline files (the baseline folder) are consumed at their "
                 "stored size")
-    if args.extract_dtype not in (None, "auto", "f32"):
-        return (f"--extract-dtype {args.extract_dtype} is a TPU gather "
-                f"table and is not ported; use auto or f32")
-    if args.p99 not in (None, "sort"):
-        return (f"--p99 {args.p99} is a TPU selection and is not ported; "
-                f"use sort")
     return None
 
 
@@ -176,10 +179,14 @@ def main(argv=None) -> int:
     refusal = _refusal(args)
     if refusal:
         raise SystemExit(f"panodepth_torch: {refusal}")
-    if args.png_level is not None:
-        import os
+    import os
 
+    if args.png_level is not None:
         os.environ["PANODEPTH_PNG_LEVEL"] = str(args.png_level)
+    if args.p99:
+        # read when the perspective net's stage runs (and is captured), as
+        # JAX reads it when it traces
+        os.environ["PANODEPTH_P99"] = args.p99
     from . import debug
     from .config import MergeConfig
 

@@ -18,6 +18,16 @@ CNN NFPerspectiveNet or the GN PerspectiveDepthNet (or its int8 graph,
 instead come from files (the reference's form).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``; on the card the
 GroupNorms, the int8 convs and the Jacobi run their CUDA kernels.
+
+Options of the JAX package, with its defaults off the TPU: the views'
+gather table (``extract_dtype``: ``auto`` is ``f32``; ``bf16``,
+``packed``, ``packed16``, ``pair16``, ``pair16d``), the baseline CNN's
+feed (``PANODEPTH_BASE_FEED``: ``bilinear``, or ``box``, the
+integer-factor box mean of a u8 panorama) and the perspective net's 99th
+percentile (``PANODEPTH_P99``: ``sort``, ``topk``, ``approx``).  The two
+variables are read when a stage runs (so when it is captured or
+exported, as JAX reads them when it traces) and join the key of the
+stages' CUDA graphs.
 """
 
 from __future__ import annotations
@@ -44,13 +54,17 @@ from .models import weights
 from .models.layers import set_qconv_route
 from .models.perspective import predict_depth01
 from .models.quantize import quantize_perspective
-from .ops.projection import extract_group, view_groups
+from .ops.projection import PACKED, extract_group, make_table, view_groups
 from .ops.resize import resize_bilinear, resize_bilinear_nhwc
 from .pipeline import (_as01, _double_buffered, _host_sync, _runs,
                        _to_device_async, _to_host_async, resolve_device,
                        true_f32)
 
-EXTRACT_DTYPES = ("auto", "f32")
+EXTRACT_DTYPES = ("auto", "f32", "bf16", "packed", "packed16", "pair16",
+                  "pair16d")
+BASE_FEEDS = ("bilinear", "box")
+# the environment variables the models stage reads when it runs
+STAGE_ENV = ("PANODEPTH_BASE_FEED", "PANODEPTH_P99")
 
 
 def _round32(v: int) -> int:
@@ -61,14 +75,42 @@ def _round32(v: int) -> int:
 
 
 def _resolve_extract_dtype(mode: str) -> str:
-    """The view-extraction table type.  ``auto`` is ``f32``, the JAX
-    package's choice off the TPU; its packed tables (``packed``,
-    ``packed16``, ``pair16``, ``pair16d``, ``bf16``) are TPU-only and not
-    ported."""
+    """The view-extraction table (a key of ``ops.projection.TABLES``).
+    ``auto`` is ``f32``, the JAX package's choice off the TPU (on the TPU
+    it takes ``pair16`` for u8 panoramas); every other mode is itself:
+    ``bf16`` samples a bf16 copy, ``packed`` one int32 word a pixel (exact
+    for 8-bit sources), ``packed16`` RGB565, ``pair16`` the 565 codes of a
+    pixel pair (bit for bit ``packed16``'s views), ``pair16d`` the same
+    Bayer-dithered."""
     if mode not in EXTRACT_DTYPES:
-        raise ValueError(f"extract dtype {mode!r} is a TPU gather table and "
-                         f"not ported; use one of {EXTRACT_DTYPES}")
-    return "f32"
+        raise ValueError(f"extract dtype must be one of {EXTRACT_DTYPES}, "
+                         f"got {mode!r}")
+    return "f32" if mode == "auto" else mode
+
+
+def base_feed() -> str:
+    """``PANODEPTH_BASE_FEED``: ``bilinear`` (the default) or ``box``."""
+    feed = os.environ.get("PANODEPTH_BASE_FEED", "bilinear")
+    if feed not in BASE_FEEDS:
+        raise ValueError(f"PANODEPTH_BASE_FEED must be one of {BASE_FEEDS}, "
+                         f"got {feed!r}")
+    return feed
+
+
+def box_feed(rgbs_u8, size):
+    """The baseline CNN's input as the integer-factor box mean of u8
+    panoramas (B, H, W, 3) at ``size`` (h, w), in bf16
+    (``panodepth/e2e.py:313-325``).  The sums of the u8 values are exact in
+    f32; the mean and the ``/ 255`` are one multiply by the f32 product of
+    the f32 reciprocals, the constant XLA folds them into in the jitted
+    graph.  Eager JAX divides twice, which moves 70-85 % of the f32 values
+    by an ulp and, in the tests' samples, no bf16 value."""
+    b, hh, ww, _ = rgbs_u8.shape
+    h, w = size
+    fh, fw = hh // h, ww // w
+    scale = np.float32(np.float32(1.0 / (fh * fw)) * np.float32(1.0 / 255.0))
+    sums = rgbs_u8.reshape(b, h, fh, w, fw, 3).to(torch.float32).sum((2, 4))
+    return (sums * float(scale)).to(torch.bfloat16)
 
 
 def _stack_if_uniform(maps):
@@ -154,12 +196,15 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     does not depend on its batch.  Inside a graph the extra launches cost
     no host time.
 
-    The nets are moved to ``device``; ``groupnorm`` is the route of both
+    ``extract_dtype`` is the views' gather table
+    (:func:`_resolve_extract_dtype`); every table but ``f32`` feeds the
+    baseline CNN's bilinear resize bf16, as in JAX.  The nets are moved
+    to ``device``; ``groupnorm`` is the route of both
     nets' GroupNorms, ``qconv`` that of the int8 perspective graph's convs
     and ``jacobi`` that of the relaxation (``auto``: the CUDA kernels on the
     card, the plain versions on the CPU).
     """
-    _resolve_extract_dtype(extract_dtype)
+    table = _resolve_extract_dtype(extract_dtype)
     dev = resolve_device(device)
     relax = kjacobi.resolve(jacobi)
     kgroupnorm.resolve(groupnorm)
@@ -171,9 +216,20 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     plan = build_fusion_plan(cfg)
     groups = list(view_groups(layout, view_width).items())
 
-    def baseline_of(rgb01):
-        """The baseline CNN on one panorama (1, H, W, 3)."""
-        rb = resize_bilinear_nhwc(rgb01, (base_w // 2, base_w))
+    def baseline_of(rgb, rgb01, feed):
+        """The baseline CNN on one panorama (1, H, W, 3), ``rgb`` as given
+        and ``rgb01`` in 0~1: its input the ``box`` feed where ``feed``
+        asks for it, the panorama is u8 and the feed's size divides it
+        (JAX's gate), else the antialiased bilinear resize, on bf16 for
+        every table but ``f32``."""
+        size = (base_w // 2, base_w)
+        if (feed == "box" and rgb.dtype == torch.uint8
+                and rgb.shape[1] % size[0] == 0
+                and rgb.shape[2] % size[1] == 0):
+            rb = box_feed(rgb, size)
+        else:
+            src = rgb01 if table == "f32" else rgb01.to(torch.bfloat16)
+            rb = resize_bilinear_nhwc(src, size)
         # the route is set per call: graphs built with other routes may
         # share this net
         return pnorm.set_route(base_model, groupnorm)(rb)
@@ -198,14 +254,19 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         rgbs01 = _as01(rgbs)
         b = rgbs01.shape[0]
         if baselines is None:
-            baselines = torch.cat([baseline_of(rgbs01[k:k + 1])
+            feed = base_feed()
+            baselines = torch.cat([baseline_of(rgbs[k:k + 1],
+                                               rgbs01[k:k + 1], feed)
                                    for k in range(b)])
             debug.check("baseline net's output", baselines)
         else:
             baselines = _as01(baselines)
+        # the packed tables straight from a u8 panorama, as in JAX
+        src = make_table(rgbs if table in PACKED and rgbs.dtype == torch.uint8
+                         else rgbs01, table)
         pmaps: List[torch.Tensor] = [None] * layout.num_views  # type: ignore
         for (h, w), idxs in groups:
-            views = extract_group(rgbs01, layout.fovs[idxs], (h, w))
+            views = extract_group(src, layout.fovs[idxs], (h, w), table)
             depths = torch.stack([depths_of(views[k]) for k in range(b)])
             for j, i in enumerate(idxs):
                 pmaps[i] = depths[:, j]
@@ -228,8 +289,9 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         return out_u16, baselines
 
     nets = (persp_model, base_model)
-    return (graphs.Graphed(full, dev, nets, name="e2e.full"),
-            graphs.Graphed(models_stage, dev, nets, name="e2e.models_stage"),
+    return (graphs.Graphed(full, dev, nets, name="e2e.full", env=STAGE_ENV),
+            graphs.Graphed(models_stage, dev, nets, name="e2e.models_stage",
+                           env=STAGE_ENV),
             graphs.Graphed(fuse_stage, dev, name="e2e.fuse_stage"))
 
 

@@ -26,6 +26,11 @@ the zenith band (Depth.cpp:1558-1562); level-0 rows outside the band zeroed
 step 0.5, reg 1e-4, clamp [0, 1] (Depth.cpp:1649-1717); C-cast
 quantization ``(ushort)(v * 65535)`` (Depth.cpp:1734); the flat-index seam
 wrap of the stencil taps (PARITY.md quirk #19).
+
+Off the main path, as in the JAX package: ``lap4`` (the plain periodic
+stencil), ``resample_view`` (a view's depth on the full equirect grid)
+and ``solve_depth_by_smoothing`` (the reference's disabled alternative
+fusion, Depth.cpp:1773-1878).
 """
 
 from __future__ import annotations
@@ -41,14 +46,15 @@ from . import geometry, graphs
 from .config import MergeConfig, _cround
 from .kernels.jacobi import jacobi_plain as jacobi
 from .kernels.jacobi import lap4_refwrap
-from .ops.sampling import as01_post
+from .ops.sampling import as01_post, sample_unit_nearest
 from .registration import apply_cubic
 
 TWO_PI = 2.0 * np.pi
 
 __all__ = ["view_bbox", "LevelPlan", "FusionPlan", "build_fusion_plan",
-           "lap4_refwrap", "level_target", "init_level0", "upsample2x",
-           "jacobi", "fuse", "fuse_batched"]
+           "lap4", "lap4_refwrap", "resample_view", "level_target",
+           "init_level0", "upsample2x", "jacobi", "fuse", "fuse_batched",
+           "solve_depth_by_smoothing"]
 
 
 def view_bbox(rng, width, height, height0, height1) -> Tuple[int, int, int, int]:
@@ -95,6 +101,7 @@ class FusionPlan:
 
     cfg: MergeConfig
     levels: Tuple[LevelPlan, ...]
+    windows: geometry.Window   # the views' windows, f32 (JAX's ``win32``)
 
 
 @functools.lru_cache(maxsize=8)
@@ -121,7 +128,40 @@ def build_fusion_plan(cfg: MergeConfig) -> FusionPlan:
         inv_cov = np.where(cov > 0, 1.0 / np.maximum(cov, 1), 0.0).astype(np.float32)
         levels.append(LevelPlan(width, height, height0, height1,
                                 schedule[level], bboxes, inv_cov))
-    return FusionPlan(cfg=cfg, levels=tuple(levels))
+    win = geometry.layout_windows(cfg.layout.fovs)
+    win32 = geometry.Window(*(np.asarray(a, np.float32) for a in win))
+    return FusionPlan(cfg=cfg, levels=tuple(levels), windows=win32)
+
+
+def _pixel_coords(width: int, height: int, device=None):
+    """Spherical coords of every equirect pixel (Depth.cpp:1591), in f32 on
+    ``device`` as the JAX package computes them (an f32 iota)."""
+    x = torch.arange(width, dtype=torch.float32, device=device)
+    y = torch.arange(height, dtype=torch.float32, device=device)
+    azi = (x / (width - 1) * TWO_PI).expand(height, width)
+    zen = (y / (height - 1) * np.pi)[:, None].expand(height, width)
+    return azi, zen
+
+
+def lap4(img):
+    """5-point Laplacian: centre - 0.25*(left+right+up+down), x and y
+    wrapping periodically (not the reference's flat-index seam, for which
+    see :func:`lap4_refwrap`)."""
+    return img - 0.25 * (
+        torch.roll(img, 1, 1) + torch.roll(img, -1, 1)
+        + torch.roll(img, 1, 0) + torch.roll(img, -1, 0))
+
+
+def resample_view(pmap, window: geometry.Window, width: int, height: int):
+    """A view's depth ``pmap`` (Hp, Wp[, C]) resampled nearest (like the
+    reference) onto the full (height, width) equirect grid through its
+    ``window``: f32 window coords on the pmap's device, as in JAX."""
+    dev = pmap.device
+    win = geometry.Window(*(torch.as_tensor(np.asarray(a, np.float32),
+                                            device=dev) for a in window))
+    azi, zen = _pixel_coords(width, height, dev)
+    x, y = geometry.spherical_to_xy(win, azi, zen, xp=torch)
+    return sample_unit_nearest(pmap, x, y)
 
 
 @functools.lru_cache(maxsize=64)
@@ -278,3 +318,100 @@ def fuse(emap, pmaps, plan: FusionPlan, jacobi_fn=None, abcd=None):
     out, buf = fuse_batched(emap2d[None], pm, plan, jacobi_fn=jacobi_fn,
                             abcd=None if abcd is None else abcd[None])
     return out[0], buf[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _smoothing_plan(cfg: MergeConfig, pmap_shapes, smooth_range: int):
+    """The pastes and the smoothing mask of :func:`solve_depth_by_smoothing`
+    at the finest level, on the host in float64: per view None (no
+    footprint) or ((y0, y1, x_lo, x_hi), flat pmap indices (i32)) over
+    the view's UNCLAMPED rows, and the (H, W) bool mask of pixels within
+    ``smooth_range`` of a paste's edge, inside the zenith band and off the
+    first and last column."""
+    plan = build_fusion_plan(cfg)
+    lvl_idx = len(plan.levels) - 1
+    lvl = plan.levels[lvl_idx]
+    h, w = lvl.height, lvl.width
+    windows = geometry.layout_windows(cfg.layout.fovs)
+    pastes = []
+    smooth = np.zeros((h, w), bool)
+    for v, (x_lo, x_hi, _, _) in enumerate(lvl.bboxes):
+        if _view_gather_indices(cfg, lvl_idx, v, pmap_shapes[v]) is None:
+            pastes.append(None)
+            continue
+        # SolveDepthBySmoothing walks the unclamped y range (no zenith-band
+        # clamp, Depth.cpp:1797-1813): recompute it from the raw ranges
+        rng = cfg.clamped_ranges()[v]
+        y0 = _cround(rng[2] / np.pi * (h - 1))
+        y1 = _cround(rng[3] / np.pi * (h - 1))
+        xs = np.arange(x_lo, x_hi + 1)
+        ys = np.arange(max(y0, 0), min(y1, h - 1) + 1)
+        azi = xs.astype(np.float64) / (w - 1) * TWO_PI
+        zen = ys.astype(np.float64) / (h - 1) * np.pi
+        ag, zg = np.meshgrid(azi, zen)
+        px, py = geometry.spherical_to_xy(geometry.window_at(windows, v),
+                                          ag, zg)
+        ph, pw = pmap_shapes[v]
+        pxi = np.clip((np.clip(px, 0, 1) * (pw - 1)).astype(np.int64), 0,
+                      pw - 1)
+        pyi = np.clip((np.clip(py, 0, 1) * (ph - 1)).astype(np.int64), 0,
+                      ph - 1)
+        pastes.append(((int(ys[0]), int(ys[-1]), x_lo, x_hi),
+                       (pyi * pw + pxi).astype(np.int32)))
+        near = np.zeros((h, w), bool)
+        near[ys[0]: ys[-1] + 1, x_lo: x_hi + 1] = True
+        interior = np.zeros((h, w), bool)
+        iy0, iy1 = ys[0] + smooth_range + 1, ys[-1] - smooth_range
+        ix0, ix1 = x_lo + smooth_range + 1, x_hi - smooth_range
+        if iy1 > iy0 and ix1 > ix0:
+            interior[iy0:iy1, ix0:ix1] = True
+        smooth |= near & ~interior
+    band = np.zeros((h, w), bool)
+    band[lvl.height0: lvl.height1 + 1, 1: w - 1] = True
+    return tuple(pastes), smooth & band
+
+
+@graphs.device_cache(maxsize=16)
+def _smoothing_tables(cfg: MergeConfig, pmap_shapes, smooth_range: int,
+                      device: torch.device):
+    """:func:`_smoothing_plan` with its indices and mask on ``device``."""
+    pastes, mask = _smoothing_plan(cfg, pmap_shapes, smooth_range)
+    return (tuple(None if p is None else
+                  (p[0], torch.from_numpy(p[1].astype(np.int64)).to(device))
+                  for p in pastes),
+            torch.from_numpy(mask).to(device))
+
+
+def solve_depth_by_smoothing(pmaps, plan: FusionPlan, iterations: int = 500,
+                             smooth_range: int = 10):
+    """The reference's alternative trivial fusion (SolveDepthBySmoothing,
+    Depth.cpp:1773-1878, disabled at Depth.cpp:919-922): each view's values
+    are pasted into its footprint over its unclamped rows (later views
+    overwrite earlier ones), the pixels within ``smooth_range`` of a
+    footprint's edge relax toward their 4-neighbour average for
+    ``iterations`` rounds, and the result is u16-quantized.  Returns (u16
+    panorama, f32 buffer).
+
+    ``pmaps`` is a (V, Hp, Wp) tensor or a list of V maps, 0~1 or u16.
+    As in the JAX package the relaxation is a dense Jacobi where the
+    reference's in-place scan is Gauss-Seidel (the path is disabled in the
+    reference, so there is no output to match bit for bit).
+    """
+    lvl = plan.levels[-1]
+    device = pmaps[0].device
+    shapes = tuple(tuple(int(d) for d in pmaps[v].shape[-2:])
+                   for v in range(len(lvl.bboxes)))
+    pastes, mask = _smoothing_tables(plan.cfg, shapes, smooth_range, device)
+    buf = torch.zeros((lvl.height, lvl.width), dtype=torch.float32,
+                      device=device)
+    for v, paste in enumerate(pastes):
+        if paste is None:
+            continue
+        (y0, y1, x_lo, x_hi), idx = paste
+        buf[y0: y1 + 1, x_lo: x_hi + 1] = as01_post(
+            pmaps[v].reshape(-1)[idx])
+    for _ in range(iterations):
+        avg = 0.25 * (torch.roll(buf, 1, 1) + torch.roll(buf, -1, 1)
+                      + torch.roll(buf, 1, 0) + torch.roll(buf, -1, 0))
+        buf = torch.where(mask, buf + 0.5 * (avg - buf), buf)
+    return (torch.clamp(buf, 0.0, 1.0) * 65535.0).to(torch.uint16), buf

@@ -10,6 +10,9 @@ Counterpart of ``panodepth/geometry.py``:
   the window plane (``PerspectiveMap::SphericalTo2D``, ``Depth.cpp:168-182``).
 * ``xy_to_spherical`` — forward map (``PerspectiveMap::ToSphericalCoord``,
   ``Depth.cpp:157-166``).
+* ``contains`` / ``window_coords`` — the window's ray test
+  (``Depth.cpp:184-207``) and its corner coords (``WindowCoords``,
+  ``Depth.cpp:2973-3039``).
 
 Every function takes an array module ``xp``: ``numpy`` (the default) for the
 float64 host precompute the gather tables are built from, or ``torch`` for
@@ -108,6 +111,30 @@ def xy_to_spherical(window: Window, x, y, xp=np):
     pos = window.corner0 + window.hedge * xp.asarray(x)[..., None] \
         + window.vedge * xp.asarray(y)[..., None]
     return world_to_spherical(pos, xp)
+
+
+def contains(window: Window, azimuth, zenith, threshold=1e-3, xp=np):
+    """Whether rays fall inside the window (reference Depth.cpp:184-207)."""
+    x, y = spherical_to_xy(window, azimuth, zenith, xp)
+    return ((x >= -threshold) & (x <= 1 + threshold)
+            & (y >= -threshold) & (y <= 1 + threshold))
+
+
+def window_coords(middle_coord, azi_half, zen_half):
+    """Spherical coords of a window's 4 corners (left-up, left-down,
+    right-down, right-up), each an (azimuth, zenith) pair, from its centre
+    (azi, zen) and half-FOVs: the debug utility WindowCoords
+    (Depth.cpp:2973-3039) without its prints.  Host float64."""
+    a0 = middle_coord[0] - azi_half
+    a1 = middle_coord[0] + azi_half
+    z0 = middle_coord[1] - zen_half
+    z1 = middle_coord[1] + zen_half
+    win = make_window(a0, a1, z0, z1)
+    c0 = win.corner0
+    c1 = win.corner0 + win.vedge
+    c2 = win.corner0 + win.hedge + win.vedge
+    c3 = win.corner0 + win.hedge
+    return tuple(world_to_spherical(np.asarray(c)) for c in (c0, c1, c2, c3))
 
 
 def window_at(windows: Window, v: int) -> Window:

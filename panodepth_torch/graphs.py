@@ -31,7 +31,10 @@ between; every shape is static per configuration, as under ``jax.jit``.
   object), and for every net the graph runs, each parameter's
   ``(data_ptr, dtype, _version)``, the key ``models/layers.Derived`` keys
   its casts with.  A graph bakes in the weights' addresses and those
-  casts, so new weights capture anew.
+  casts, so new weights capture anew.  The values of the environment
+  variables named in ``env`` join the key: a stage that reads one when
+  it runs (``PANODEPTH_BASE_FEED``, ``PANODEPTH_P99``, as JAX reads them
+  when it traces) is captured anew for another value.
 - **CPU, NaN checks and failures.** On the CPU the function runs eagerly:
   the CPU has no graph; so it does under ``--debug-nans``
   (``debug.nans_on()``), whose checks a replay would skip.  On the card a
@@ -49,6 +52,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import os
 from typing import Callable, Iterable
 
 import numpy as np
@@ -166,15 +170,17 @@ class Graphed:
     from a :func:`device_cache`).  Inputs may be numpy arrays, CPU tensors (pinned ones are
     copied asynchronously) or tensors on ``device``.  ``eager`` is ``fn``
     itself.  At most ``MAX_SIGNATURES`` signatures are kept, the least
-    recently used evicted (its graph and memory pool freed).
+    recently used evicted (its graph and memory pool freed).  ``env``
+    names environment variables ``fn`` reads: their values join the key.
     """
 
     def __init__(self, fn: Callable, device, modules: Iterable = (),
-                 name: str = None):
+                 name: str = None, env: Iterable[str] = ()):
         self.eager = fn
         self.device = torch.device(device)
         self.modules = tuple(m for m in modules if m is not None)
         self.name = name or getattr(fn, "__name__", "function")
+        self.env = tuple(env)
         self._cache: collections.OrderedDict = collections.OrderedDict()
 
     def _weights(self):
@@ -194,7 +200,8 @@ class Graphed:
         leaves = [torch.from_numpy(np.ascontiguousarray(t))
                   if isinstance(t, np.ndarray) else t for t in leaves]
         key = (spec, tuple((tuple(t.shape), t.dtype) for t in leaves),
-               self._weights_key())
+               self._weights_key(),
+               tuple(os.environ.get(name) for name in self.env))
         entry = self._cache.get(key)
         if entry is None:
             entry = self._capture(spec, leaves)

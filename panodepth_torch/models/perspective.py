@@ -31,6 +31,7 @@ The numerics are the JAX package's, including where they are odd:
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -361,26 +362,56 @@ class NFPerspectiveNet(nn.Module):
         return softplus(self.Conv_0(y)[:, 0])
 
 
-def _percentile99(flat):
-    """Per-row 99th percentile of (B, N), as ``jnp.percentile(flat, 99.0,
-    axis=1)`` computes it: a full sort, then linear interpolation between
-    ranks floor and ceil of ``0.99 * (N - 1)`` in f32.
+P99_MODES = ("sort", "topk", "approx")
 
-    The ranks and weights depend on N alone, so they are formed on the
-    host in numpy f32 with the same roundings and applied as Python floats
-    (exact for f32 values): no host-to-device copy, so a CUDA graph can
-    capture the call.
+
+def p99_mode() -> str:
+    """``PANODEPTH_P99`` (``sort``, the default off the TPU, ``topk`` or
+    ``approx``), read when a stage is built, traced or captured, as JAX
+    reads it when it traces."""
+    mode = os.environ.get("PANODEPTH_P99", "sort")
+    if mode not in P99_MODES:
+        raise ValueError(f"PANODEPTH_P99 must be one of {P99_MODES}, got "
+                         f"{mode!r}")
+    return mode
+
+
+def _percentile99(flat):
+    """Per-row 99th percentile of (B, N), as the JAX package's
+    ``_percentile99`` computes it in the mode ``PANODEPTH_P99`` names.
+
+    ``sort`` (the default): ``jnp.percentile(flat, 99.0, axis=1)``, a full
+    sort, then linear interpolation between ranks floor and ceil of ``0.99
+    * (N - 1)`` in f32.  The ranks and weights depend on N alone, so they
+    are formed on the host in numpy f32 with the same roundings and applied
+    as Python floats (exact for f32 values): no host-to-device copy, so a
+    CUDA graph can capture the call.
+
+    ``topk``: the interpolated rank statistic from the top k = N - rank
+    values only (``lax.top_k``'s form: rank = (N-1)*99//100, the weight
+    (N-1)*0.99 - rank rounded to f32, ``lo + frac * (hi - lo)``).
+    ``approx``: JAX's ``lax.approx_max_k``, which off the TPU returns the
+    exact top k, so here the same as ``topk``.
     """
+    mode = p99_mode()
     n = flat.shape[1]
-    q = np.float32(99.0) / np.float32(100)
-    q = q * (np.float32(n) - np.float32(1))
-    low, high = np.floor(q), np.ceil(q)
-    high_w = q - low
-    low_w = np.float32(1) - high_w
-    lo = int(np.clip(low, 0, n - 1))
-    hi = int(np.clip(high, 0, n - 1))
-    s = torch.sort(flat.to(torch.float32), dim=1).values
-    return s[:, lo] * float(low_w) + s[:, hi] * float(high_w)
+    if mode == "sort":
+        q = np.float32(99.0) / np.float32(100)
+        q = q * (np.float32(n) - np.float32(1))
+        low, high = np.floor(q), np.ceil(q)
+        high_w = q - low
+        low_w = np.float32(1) - high_w
+        lo = int(np.clip(low, 0, n - 1))
+        hi = int(np.clip(high, 0, n - 1))
+        s = torch.sort(flat.to(torch.float32), dim=1).values
+        return s[:, lo] * float(low_w) + s[:, hi] * float(high_w)
+    rank = (n - 1) * 99 // 100            # floor((n-1)*0.99), exact in int
+    frac = float(np.float32((n - 1) * 0.99 - rank))
+    k = n - rank                          # descending index n-1-rank, +1
+    v = torch.topk(flat.to(torch.float32), k, dim=1).values  # descending
+    lo = v[:, k - 1]                      # ascending a[rank]
+    hi = v[:, k - 2] if k >= 2 else v[:, k - 1]
+    return lo + frac * (hi - lo)
 
 
 def predict_depth01(model: nn.Module, rgb):

@@ -11,11 +11,21 @@ The sample grid depends only on the layout and the zenith band, so it is
 built on the host in float64 and quantized there to nearest-pixel gather
 indices (f32 index arithmetic would flip pixel boundaries).  At run time
 registration is two gathers and the batched (V, S, 4) solve.
+
+Also, as in the JAX package: ``fit_cubic_global`` (the result-vs-baseline
+re-registration ``SolveDepthToDepth2``, Depth.cpp:1158-1259), ``fit_poly``
+/ ``apply_poly`` (the reference's functor family of degrees 1-4),
+``fit_reciprocal`` / ``apply_reciprocal`` (the disparity model ``y = c/(a
+x + b) + d``, ``FunctorDisparity2Depth`` at Depth.cpp:1044-1073,
+``D2DTransform`` at Depth.cpp:214-243).  Every solver is plain tensor
+arithmetic (no ``torch.linalg``), so it runs on the card with no host
+sync and inside a CUDA graph.
 """
 
 from __future__ import annotations
 
 import functools
+from math import comb
 from typing import NamedTuple
 
 import numpy as np
@@ -162,6 +172,46 @@ def _normal_solve4(A):
     return solve
 
 
+def _chol_solve_factory(G):
+    """Equilibrated Cholesky solve of a small SPD system ``G`` (..., n, n)
+    of static size n, unrolled into plain tensor arithmetic: the generic
+    sibling of :func:`_normal_solve4`, in the JAX package's op order.
+    Returns ``solve(rhs)`` for rhs (..., n), reusing the factorization."""
+    n = G.shape[-1]
+    d = torch.rsqrt(torch.clamp_min(torch.diagonal(G, dim1=-2, dim2=-1),
+                                    1e-38))
+    Gs = G * d[..., :, None] * d[..., None, :]           # unit diagonal
+
+    def ssqrt(v):
+        return torch.sqrt(torch.clamp_min(v, 1e-38))
+
+    L = [[None] * n for _ in range(n)]
+    for i in range(n):
+        for j in range(i + 1):
+            acc = Gs[..., i, j]
+            for k in range(j):
+                acc = acc - L[i][k] * L[j][k]
+            L[i][j] = ssqrt(acc) if i == j else acc / L[j][j]
+
+    def solve(rhs):
+        b = rhs * d
+        y = [None] * n
+        for i in range(n):
+            acc = b[..., i]
+            for k in range(i):
+                acc = acc - L[i][k] * y[k]
+            y[i] = acc / L[i][i]
+        x = [None] * n
+        for i in reversed(range(n)):
+            acc = y[i]
+            for k in range(i + 1, n):
+                acc = acc - L[k][i] * x[k]
+            x[i] = acc / L[i][i]
+        return torch.stack(x, -1) * d
+
+    return solve
+
+
 def _matvec(A, v):
     return (A @ v[..., None])[..., 0]
 
@@ -263,3 +313,167 @@ def apply_cubic(img, abcd):
     a, b, c, d = abcd[..., 0], abcd[..., 1], abcd[..., 2], abcd[..., 3]
     y = ((a * x + b) * x + c) * x + d
     return torch.clamp(y, 0.0, 1.0)
+
+
+def _integer_pow(x, k: int):
+    """``x ** k`` for a Python int k >= 0 by JAX's ``integer_pow``
+    (square-and-multiply in its order), not ``torch.pow``'s libm call."""
+    if k == 0:
+        return torch.ones_like(x)
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return acc
+
+
+@graphs.device_cache(maxsize=16)
+def _global_indices(emap_shape, result_shape, zenith_range,
+                    device: torch.device):
+    """Rows [y0, y1] of the result and the baseline's nearest (eyi, exi)
+    at each of their pixels' spherical coords, built in float64 on the
+    host as ``register_views``' indices are."""
+    he, we = emap_shape
+    h, w = result_shape
+    y0 = int(np.floor(h * zenith_range[0] / np.pi))
+    y1 = int(np.ceil(h * zenith_range[1] / np.pi))
+    ys, xs = np.meshgrid(np.arange(y0, y1 + 1, dtype=np.float64),
+                         np.arange(w, dtype=np.float64), indexing="ij")
+    azi = xs / (w - 1) * TWO_PI
+    zen = ys / (h - 1) * np.pi
+    exi = np.clip((azi / TWO_PI * (we - 1)).astype(np.int32), 0, we - 1)
+    eyi = np.clip((zen / np.pi * (he - 1)).astype(np.int32), 0, he - 1)
+    return y0, y1, (torch.from_numpy(eyi.astype(np.int64)).to(device),
+                    torch.from_numpy(exi.astype(np.int64)).to(device))
+
+
+def fit_cubic_global(result01, emap, zenith_range):
+    """Global cubic re-registration of the fused panorama to the baseline
+    (SolveDepthToDepth2, Depth.cpp:1158-1259): every pixel of the rows
+    [floor(H*zr0/pi), ceil(H*zr1/pi)] of ``result01`` (H, W) 0~1 paired
+    with the baseline's nearest sample at its spherical coord.  Returns
+    (4,) abcd."""
+    emap2d = emap if emap.dim() == 2 else emap[..., 0]
+    y0, y1, (eyi, exi) = _global_indices(
+        tuple(emap2d.shape), tuple(result01.shape),
+        tuple(float(z) for z in zenith_range), result01.device)
+    d0 = _clamp(result01[y0:y1 + 1, :])
+    d1 = _clamp(emap2d[eyi, exi])
+    return fit_cubic(d0.reshape(-1), d1.reshape(-1),
+                     torch.ones_like(d0).reshape(-1))
+
+
+def apply_reciprocal(img, abcd):
+    """D2DTransform: y = c / (a x + b) + d with apply_cubic's clamps
+    (Depth.cpp:214-243)."""
+    x = _clamp(img)
+    a, b, c, d = abcd[..., 0], abcd[..., 1], abcd[..., 2], abcd[..., 3]
+    y = c / (a * x + b) + d
+    return torch.clamp(y, 0.0, 1.0)
+
+
+def fit_poly(x, y, weight, degree: int = 3):
+    """Weighted LSQ fit of y ~ sum_k c_k x^k, highest power first: (degree
+    + 1,) coefficients for :func:`apply_poly`.
+
+    The reference's functor family: degree 1 FunctorDepth2Depth
+    (Depth.cpp:1076-1121), 2 FunctorDepth2Depth2 (Depth.cpp:1091-1106), 3
+    FunctorDepth2Depth3 (:func:`fit_cubic`, the active model), 4
+    FunctorDepth2Depth4 (Depth.cpp:1139-1156).  The same standardized
+    basis, equilibrated normal equations and two refinement rounds as
+    :func:`fit_cubic`, then the binomial expansion back to powers of x,
+    summed in the JAX package's order.
+    """
+    x = x.reshape(-1)
+    y = y.reshape(-1)
+    w = weight.reshape(-1)
+    if degree == 3:
+        return fit_cubic(x, y, w)
+    wsum = torch.clamp_min(torch.sum(w), 1e-38)
+    s = torch.sum(w * x) / wsum
+    var = torch.sum(w * (x - s) ** 2) / wsum
+    sig = torch.clamp_min(torch.sqrt(var), 1e-6)
+    t = (x - s) / sig
+    V = torch.stack([_integer_pow(t, k) for k in range(degree, -1, -1)], -1)
+    Vw = V * w[:, None]
+    yw = y * w
+    VwT = Vw.T
+    solve = _chol_solve_factory(VwT @ Vw)
+    beta = solve(VwT @ yw)
+    for _ in range(2):
+        beta = beta + solve(VwT @ (yw - Vw @ beta))
+    # b_k sig^-(d-k) (x - s)^(d-k), expanded binomially into x^j
+    out = [torch.zeros((), dtype=beta.dtype, device=beta.device)
+           for _ in range(degree + 1)]
+    for k in range(degree + 1):
+        p = degree - k
+        bk = beta[k] / _integer_pow(sig, p)
+        for j in range(p + 1):
+            coeff = comb(p, j) * _integer_pow(-s, p - j)
+            out[degree - j] = out[degree - j] + bk * coeff
+    return torch.stack(out)
+
+
+def apply_poly(img, coeffs):
+    """Pointwise polynomial remap (Horner, as ``jnp.polyval``) with the
+    reference's clamps."""
+    x = _clamp(img)
+    y = torch.zeros_like(x)
+    for k in range(coeffs.shape[-1]):
+        y = y * x + coeffs[..., k]
+    return torch.clamp(y, 0.0, 1.0)
+
+
+def fit_reciprocal(x, y, weight, init=(1.0, 1.0, 1.0, 1.0), iters: int = 50):
+    """Levenberg-Marquardt fit of y ~ c / (a x + b) + d (disparity to
+    depth; the reference's declared but undefined SolveDisparityToDepth,
+    Depth.h:293-294).  Returns (4,) abcd.
+
+    The model has a gauge freedom (a, b, c scale together), so plain
+    Gauss-Newton diverges; LM damping keeps the steps finite.  ``iters``
+    accept/reject steps, each chosen by ``torch.where`` on the device
+    (no host sync).  The Jacobian's four columns are written out as
+    ``jax.jacfwd`` forms them (the quotient's JVP: ``-u' c / u^2`` as
+    ``(-u' c) * (1 / (u u))``).
+    """
+    x = x.reshape(-1)
+    y = y.reshape(-1)
+    w = weight.reshape(-1)
+
+    def residual(p):
+        return w * (p[2] / (p[0] * x + p[1]) + p[3] - y)
+
+    def cost(p):
+        r = residual(p)
+        return torch.sum(r * r)
+
+    def jacobian(p):
+        u = p[0] * x + p[1]
+        inv_u2 = 1.0 / (u * u)
+        return torch.stack([w * ((-x * p[2]) * inv_u2),
+                            w * ((-p[2]) * inv_u2),
+                            w * (1.0 / u),
+                            w], -1)
+
+    # made by fills on the device: no host-to-device copy, so a CUDA
+    # graph can capture the fit
+    full = functools.partial(torch.full, (), dtype=torch.float32,
+                             device=x.device)
+    eye = torch.eye(4, dtype=torch.float32, device=x.device)
+    p = torch.stack([full(float(v)) for v in init])
+    lam = full(1e-3)
+    for _ in range(iters):
+        r = residual(p)
+        J = jacobian(p)
+        JTJ = J.T @ J
+        damped = JTJ + lam * torch.diag(torch.diagonal(JTJ)) + 1e-12 * eye
+        delta = _chol_solve_factory(damped)(J.T @ r)
+        p_new = p - delta
+        better = cost(p_new) < cost(p)
+        p = torch.where(better, p_new, p)
+        lam = torch.clamp(torch.where(better, lam * 0.5, lam * 4.0),
+                          1e-9, 1e6)
+    return p

@@ -222,8 +222,12 @@ def export_e2e(path: str, cfg: MergeConfig, batch: int, persp_ckpt: str,
     defaults to the perspective net's training size, the baseline width
     to the baseline net's.  ``persp_int8`` bakes the GN perspective net's
     int8 graph in (its int8 codes, a quarter of the float weights' bytes).
+    ``PANODEPTH_BASE_FEED`` and ``PANODEPTH_P99`` are read while the
+    graph is traced, so the artifact bakes in their values at export
+    time, as a JAX export does; the sidecar records them.
     """
-    from .e2e import build_batched_e2e, load_model_checkpoint
+    from .e2e import base_feed, build_batched_e2e, load_model_checkpoint
+    from .models.perspective import p99_mode
 
     dev = resolve_device(device)
     persp, persp_arch = load_model_checkpoint(persp_ckpt, device=dev,
@@ -242,7 +246,8 @@ def export_e2e(path: str, cfg: MergeConfig, batch: int, persp_ckpt: str,
                         persp=persp_arch.get("model"),
                         baseline=base_arch.get("model"),
                         persp_int8=persp_int8, jacobi=jacobi,
-                        groupnorm=groupnorm), path)
+                        groupnorm=groupnorm, base_feed=base_feed(),
+                        p99=p99_mode()), path)
 
 
 def _random_inputs(meta: dict, seed: int = 0):

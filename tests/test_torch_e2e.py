@@ -251,6 +251,29 @@ def model_mode_scene(tmp_path_factory):
 # flags the model mode now runs: each case runs the CLI with it and holds
 # the files to the run without it
 _RUNS = {"--stream": ("--stream", "on"), "--profile": ("--profile",)}
+# flags the model mode now runs whose files are held to the JAX CLI's with
+# the same flags (the bf16 bar); the box feed engages on u8 input only,
+# so its case streams the panoramas (the variable set for both CLIs)
+_JAX_RUNS = {"--extract-dtype pair16": ("--extract-dtype", "pair16"),
+             "--p99 approx": ("--p99", "approx"),
+             "PANODEPTH_BASE_FEED=box": ("--stream", "on")}
+
+
+def run_both_clis(head, common, root, extra, monkeypatch, env=None):
+    """The port's and the JAX CLI's model mode with ``extra`` flags (and the
+    environment ``env``) into ``root/res_{torch,jax}``; returns the two
+    folders.  Each CLI sets PANODEPTH_P99 for ``--p99``; the variables are
+    as before after the test."""
+    monkeypatch.delenv("PANODEPTH_P99", raising=False)  # unset at teardown
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, v)
+    res = {k: str(root / f"res_{k}") for k in ("torch", "jax")}
+    assert tcli.main(head + [res["torch"]] + common + list(extra)) == 0
+    jargs = [a for a in common if a not in ("--device", "cpu")]
+    assert jcli.main(head + [res["jax"]] + jargs + list(extra)
+                     + ["--platform", "cpu"]) == 0
+    os.environ.pop("PANODEPTH_P99", None)
+    return res
 
 
 @pytest.mark.parametrize("extra,needle", [
@@ -260,9 +283,10 @@ _RUNS = {"--stream": ("--stream", "on"), "--profile": ("--profile",)}
     (("--latency",), "--latency"),
     (("--stream", "on"), "--stream"),
     (("--profile",), "--profile"),
+    (("--stream", "on"), "PANODEPTH_BASE_FEED=box"),
 ])
 def test_model_mode_refuses_what_is_not_ported(tmp_path, request, capsys,
-                                               extra, needle):
+                                               monkeypatch, extra, needle):
     """What is not ported is refused by name; ``--stream on`` and
     ``--profile``, ported since, run and give the files of the run without
     them within 2 u16 (the CLI bar), the same metrics, and with
@@ -271,7 +295,44 @@ def test_model_mode_refuses_what_is_not_ported(tmp_path, request, capsys,
     int8 graph: the files within ``INT8_CLI_BAR`` of the JAX CLI's with
     the flag, and the bf16 graph of the same checkpoint outside it, the
     metrics file written and the int8 graph's own output equal to the
-    file."""
+    file.  ``--extract-dtype pair16``, ``--p99 approx`` and
+    ``PANODEPTH_BASE_FEED=box`` (with ``--stream on``), ported since, run
+    both CLIs: the files within the bf16 bar of the JAX CLI's with the
+    same options (measured at most 329 / 23.9, 260 / 21.2 and 271 / 28.4),
+    and ``--p99 approx`` within 1 u16 of the run without it (measured max
+    1, mean 0.008: the top-k interpolation ``lo + f (hi - lo)`` and the
+    sort's ``lo (1 - f) + hi f`` differ by an f32 ulp; JAX's CLI moves 22 /
+    0.83 between the two), and the box run's file equal to the in-memory
+    graph on the u8 panorama under the variable."""
+    if needle in _JAX_RUNS:
+        head, common, root = request.getfixturevalue("model_mode_scene")
+        env = ({"PANODEPTH_BASE_FEED": "box"} if "BASE_FEED" in needle
+               else None)
+        res = run_both_clis(head, common, tmp_path, extra, monkeypatch, env)
+        for name in ("p0", "p1"):
+            got = tio.read_png(os.path.join(res["torch"], f"{name}.png"))
+            want = tio.read_png(os.path.join(res["jax"], f"{name}.png"))
+            dmax, dmean = _u16_diff(got, want)
+            assert got.shape == (64, 128) and dmax <= BF16_BAR[0] \
+                and dmean < BF16_BAR[1], (name, dmax, dmean)
+            plain = tio.read_png(str(root / "res_plain" / f"{name}.png"))
+            if needle == "--p99 approx":
+                assert _u16_diff(got, plain)[0] <= 1, name
+            else:  # another feed or table: another output
+                assert _u16_diff(got, plain)[0] > 2, name
+        assert os.path.isfile(os.path.join(res["torch"], "p0.aligned.txt"))
+        if "BASE_FEED" in needle:
+            # the graph under the variable: the box mean of the u8 pixels
+            tp, _ = te.load_model_checkpoint(PERSP, device="cpu")
+            tb, _ = te.load_model_checkpoint(BASE, device="cpu")
+            full = te.build_batched_e2e(
+                tp, tconfig.MergeConfig(layout_name="3fold", out_width=128),
+                view_width=64, base_model=tb, base_w=128, device="cpu")[0]
+            rgb8 = tio.load_image_int(str(root / "rgb" / "p0.png"))[0]
+            got = tio.read_png(os.path.join(res["torch"], "p0.png"))
+            np.testing.assert_array_equal(
+                got, full(torch.tensor(rgb8[None]))[0][0].numpy())
+        return
     if needle == "--persp-int8":
         head, common, root = request.getfixturevalue("model_mode_scene")
         int8 = [GN_PERSP if a == PERSP else a for a in common] + list(extra)
@@ -338,11 +399,16 @@ def test_model_mode_refusals_of_the_jax_cli(tmp_path, extra, needle):
 
 
 def test_extract_dtype_policy():
+    """``auto`` is ``f32`` (JAX's choice off the TPU); every other mode of
+    JAX's ``--extract-dtype`` is its own table; anything else is refused."""
     assert te._resolve_extract_dtype("auto") == "f32"
     assert te._resolve_extract_dtype("f32") == "f32"
     for mode in ("packed", "packed16", "pair16", "pair16d", "bf16"):
-        with pytest.raises(ValueError, match="not ported"):
-            te._resolve_extract_dtype(mode)
+        assert te._resolve_extract_dtype(mode) == mode
+        assert je._resolve_extract_dtype(mode, jnp.uint8, False) == mode
+    assert je._resolve_extract_dtype("auto", jnp.uint8, False) == "f32"
+    with pytest.raises(ValueError, match="extract dtype"):
+        te._resolve_extract_dtype("u8")
     assert te._round32(247) == 256 and te._round32(256) == 256
     assert te._round32(5) == 32
     u8 = torch.tensor([[0, 255]], dtype=torch.uint8)

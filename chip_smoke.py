@@ -86,7 +86,9 @@ Phases, each printing its elapsed seconds:
              eager and graph times in turns (eager, graph, graph, eager):
              the merge at batch 1, the batched graph at 4 and 24, the e2e
              graph at batch 2 (and its eager stages) and 8, each with the
-             device's idle share.
+             device's idle share.  After the batch-4 merge, the dp pair's
+             outputs (below) are held bit-equal to it and to phase e2e's
+             batch-2 graph.
 13. families — each of the zoo's other checkpoints at full width (the GN
              perspective net on the 15 views of 5fold_leres at 256, the
              UniFuse-class, HoHoNet, BiFuse and SliceNet baselines at
@@ -143,7 +145,7 @@ Phases, each printing its elapsed seconds:
              artifact (.npz); the replays timed in turns against the
              in-process graphs (artifact, graph, graph, artifact) with
              device busy and idle share.  The artifacts live in a temporary
-             directory, deleted at the end.  Phase train's two ``train_cli``
+             directory, deleted at the end.  Phase train's ``train_cli``
              children (started before phase cli-e2e) are awaited before
              the first artifact is loaded; they and the exports (one
              thread each) run at background priority.
@@ -174,13 +176,28 @@ Phases, each printing its elapsed seconds:
              counted);
              the merge CLI with --debug-nans on phase cli's first scene
              (eager: 26 Jacobi launches, output bit-equal to phase cli's);
-             then the two ``train_cli`` children (run beside phases
-             cli-e2e and stage-a): 3 steps on --synth, and 4 on the files
-             with --eval-every 2
+             then the ``train_cli`` children (run beside phases cli-e2e
+             and stage-a): 3 steps on --synth as a two-process run
+             (``--coordinator``, both ranks on cuda:0 over gloo, 8 rows
+             each: both exit 0, only rank 0 says ``[train] done``, each
+             names its backend, the final checkpoint's digest agrees over
+             the ranks, each rank's teacher runs 31 GroupNorm launches a
+             step; each rank's step ms and device time), and 4 on the
+             files in one process with --eval-every 2
              --trace (the holdout lines, finite val_loss, a trace holding
              the card's kernels), each child's ``fastpano_final.params.npz``
              run in the e2e graph beside the zoo NF net (``_family_e2e``'s
              checks).
+
+The dp pair: two ranks of this script (``--dp-worker RANK PORT DIR``),
+started with phase train's children at background priority and awaited
+before phase batched, both on cuda:0 over gloo: ``parallel.mesh.
+batched_merge`` at 5fold_leres 2048 on a batch of 4 scenes (2 a rank) and
+``build_batched_e2e(mesh=make_mesh())`` with the zoo nets on the two
+panoramas (1 a rank), the Jacobi's and the GroupNorm's launches counted in
+each rank, each rank's ms a panorama, the gathered outputs the same on
+both ranks.  The --synth train run's ranks are this script too
+(``--train-rank ARGV``): ``train_cli.main(ARGV)`` with the steps timed.
 
 Launch counts: a graph's kernels are counted by their wrappers at the two
 warm-up calls and the capture (``graph_launches``); a replay launches them
@@ -1568,6 +1585,7 @@ def phase_e2e(persp, base, rgbs_u8):
                    tables=_e2e_tables(rgbs_u8[0]),
                    p99=_e2e_p99(persp, rgbs_u8[0]))
     return dict(single0=singles[0].cpu().numpy(), options=options,
+                batch2=out.cpu().numpy(),
                 singles=[x.cpu().numpy() for x in singles],
                 bases=bases.cpu().numpy(),
                 launches=launches, warm=warm, busy_ms=busy_ms,
@@ -2627,9 +2645,12 @@ def _write_cli_scene(root, cfg, scenes, names):
     return d
 
 
-def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
+def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
+                 smi):
     """The compiled merge forms against the eager merge (batch 1, staged,
-    batched at B = 4 and 24), one 4096 merge through the graph against the
+    batched at B = 4 and 24), the dp pair's gathered merge and e2e outputs
+    against the batch-4 merge and phase e2e's batch-2 graph (``dp``,
+    :meth:`DPPair.check`), one 4096 merge through the graph against the
     plain path, ``merge_many`` on files, both CLIs with --batch-size and
     --profile (and --stream on in model mode) with resume, and the
     eager/graph times in turns."""
@@ -2653,6 +2674,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
         if not ok:
             raise AssertionError(f"{label} differs")
 
+    parts = _Parts("graphs")
     # 1. the compiled forms against the eager merge
     fresh_graphs()
     kj.LAUNCHES = 0
@@ -2693,6 +2715,10 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
     same("compiled_merge_batched B=4 (scenes 0, 1, 1, 0), each vs its "
          "batch-1 merge", [*out4, *abcd4],
          [eager[k][0] for k in order] + [eager[k][1] for k in order])
+    if tuple(order) != DP_ORDER:
+        raise AssertionError("the dp pair merges another batch")
+    dp_checked = dp.check(out4.cpu().numpy(), abcd4.cpu().numpy(),
+                          e2e["batch2"], smi)
     busy, events = _device_profile(lambda: fn4(e4, p4))
     tiles = sum(c for _, c, n in events if "jacobi_tile" in n)
     print(f"graphs: one B=4 replay under the profiler: device busy "
@@ -2723,6 +2749,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
     for ms, count, name in events[:8]:
         print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
 
+    parts.done("compiled forms, the dp pair")
     # 2. one 4096 merge through the graph against the plain path
     sc4 = make_scene(cfg_4096, SEED)
     e, p = (torch.tensor(_as01(sc4["base"]), device=dev),
@@ -2748,6 +2775,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
         d = _write_cli_scene(root, cfg, scenes, names)
         single = [eager[k][0].cpu().numpy() for k in range(len(scenes))]
 
+        parts.done("4096")
         # 3. merge_many on files, batch 4, stream off and on, profile
         def items(tag):
             os.makedirs(os.path.join(root, tag))
@@ -2852,6 +2880,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
                 or kg.LAUNCHES):
             raise AssertionError("model-mode cli resume did not skip")
 
+    parts.done("merge_many, the CLIs")
     # 5. eager and graph times in turns (eager, graph, graph, eager)
     fresh_graphs()
     times = {}
@@ -2898,9 +2927,10 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e):
               f"to synchronize, median of the turns {times[key]!r} ms per "
               f"call), device busy {busy / b!r} ms per panorama, idle share "
               f"{table[key]['idle_share']!r}")
+    parts.done("eager and graph times")
     return dict(batched_launches=batched_launches,
                 launches_4096=launches_4096, many=many, memory_b24=memory,
-                e2e_cli_launches=e2e_launches, table=table)
+                e2e_cli_launches=e2e_launches, table=table, dp=dp_checked)
 
 
 # ---------------------------------------------------------------------------
@@ -3021,12 +3051,21 @@ def _launch_counters(keys):
     return reads
 
 
-def _replay_kernels(run, keys=("jacobi", "group_norm")):
+def _replay_kernels(run, want):
     """(device busy ms, {kernel: launches}) of one ``run()`` under the
-    profiler, for the kernels ``keys``."""
-    busy, events = _device_profile(run)
-    return busy, {k: sum(c for _, c, n in events if _COUNTED[k][2] in n)
-                  for k in keys}
+    profiler, for the kernels of ``want`` ({kernel: launches expected}).
+    The profiler drops records at times (PERF.md section 7), so a profile
+    that counts other launches is taken again, up to three in all, as in
+    phase families, and each that fell short is printed."""
+    for attempt in range(3):
+        busy, events = _device_profile(run)
+        seen = {k: sum(c for _, c, n in events if _COUNTED[k][2] in n)
+                for k in want}
+        if seen == want:
+            break
+        print(f"profiler: profile {attempt + 1} of the replay saw {seen}, "
+              f"expected {want}")
+    return busy, seen
 
 
 def _hold_loaded(label, art, ins, want, nodes, per_call,
@@ -3049,7 +3088,7 @@ def _hold_loaded(label, art, ins, want, nodes, per_call,
     equal = all(torch.equal(g, w) for g, w in zip(got, want))
     if before_replay is not None:
         before_replay()
-    busy, replayed = _replay_kernels(lambda: art(*ins), tuple(per_call))
+    busy, replayed = _replay_kernels(lambda: art(*ins), per_call)
     print(f"serve {label}: kernel nodes {got_nodes} (expected {nodes}); "
           f"launches at the first call {launches} (expected "
           f"{ {k: graph_launches(v) for k, v in per_call.items()} }), in a "
@@ -3536,7 +3575,7 @@ TRAIN_BATCH = 16       # the zoo recipe's batch (zoo/README.md, retrain_zoo.sh)
 TRAIN_LR = 3e-4
 TEACHER_CKPT = os.path.join(ZOO, "panoramic_final.params.npz")
 TEACHER_NORMS = 31     # the UniFuse-class teacher's GroupNorms a forward
-TRAIN_TIMED = 8        # steps timed per reading
+TRAIN_TIMED = 4        # steps timed per reading
 TRAIN_FALL_STEPS = 20  # steps on one fixed batch whose loss must fall
 # the recipe's schedule (zoo/README.md: 14000 steps for the panoramic
 # families, 18000 for the perspective net; 200 warmup steps)
@@ -3553,6 +3592,7 @@ TRAIN_CPU_GN_REL = 1e-2
 # beyond 5 % the smoke says so (the reason is written in PERF.md)
 ZOO_FASTPANO_RMSE, ZOO_FASTPANO_DELTA1 = 0.0082, 0.958
 TRAIN_CLI_TIMEOUT = 240
+TRAIN_CLI_STEPS = 3    # the --synth child's steps
 # the file dataset: procedural mix scenes at Matterport3D's 1024x512, written
 # by the port's writer (quality-95 JPEG RGB, 16-bit PNG gt); every 10th
 # pair held out by the train CLI's --eval-every
@@ -3908,11 +3948,254 @@ def _train_card_vs_cpu():
                 grad_norm_rel=gn_rel)
 
 
+# --- the multi-process runs: phase train's trainer ranks, the dp pair ---------
+
+TRAIN_RANKS = 2        # the --synth child's processes, both on cuda:0 (gloo)
+DP_ORDER = (0, 1, 1, 0)  # the dp merge's batch of scenes (phase graphs' B=4)
+DP_TIMEOUT = 240
+
+
+def _free_port():
+    """A port the system has just handed out (a bind to port 0)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_line(rec):
+    """A rank's numbers as the ``[smoke-rank]`` JSON line its parent reads."""
+    print("[smoke-rank] " + json.dumps(rec), flush=True)
+
+
+def _rank_record(out, label):
+    """The ``[smoke-rank]`` record a rank printed in ``out``."""
+    lines = [l for l in out.splitlines() if l.startswith("[smoke-rank] ")]
+    if len(lines) != 1:
+        raise AssertionError(f"{label}: {len(lines)} [smoke-rank] lines\n"
+                             f"{out[-3000:]}")
+    return json.loads(lines[0][len("[smoke-rank] "):])
+
+
+def train_rank(argv):
+    """One rank of phase train's two-process run (``python3 chip_smoke.py
+    --train-rank ARGV...``): ``train_cli.main(ARGV)`` with each step of the
+    sharded step timed to a synchronize and the third profiled, then the
+    rank's GroupNorm launches and times as a ``[smoke-rank]`` line."""
+    from panodepth_torch import train_cli
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.models import train as ptrain
+
+    times, busy = [], []
+    shard = ptrain.shard_train_step
+
+    def timed_shard(step_fn, mesh):
+        step = shard(step_fn, mesh)
+
+        def timed(state, batch):
+            out = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(times) == 2:  # one profile, never a second step
+                busy.append(_device_profile(
+                    lambda: out.append(step(state, batch)), attempts=1)[0])
+            else:
+                out.append(step(state, batch))
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out[0]
+        return timed
+
+    ptrain.shard_train_step = timed_shard
+    kg.LAUNCHES = 0
+    rc = train_cli.main(argv)
+    _rank_line(dict(rank=int(argv[argv.index("--process-id") + 1]),
+                    group_norm=kg.LAUNCHES, step_ms=times, busy_ms=busy))
+    return rc
+
+
+def dp_rank(rank, port, root):
+    """One rank of the dp pair (``python3 chip_smoke.py --dp-worker RANK PORT
+    DIR``), both on cuda:0 over gloo: ``batched_merge`` at 5fold_leres 2048
+    on the batch of 4 scenes ``DP_ORDER`` and the e2e graph with the zoo
+    nets on the two panoramas, each rank its half; the Jacobi and GroupNorm
+    launches of each, ms a panorama; rank 0 writes the gathered outputs to
+    ``DIR/dp_out.npz``, each rank the sha256 of its gathered outputs."""
+    import hashlib
+
+    from panodepth_torch import MergeConfig
+    from panodepth_torch.e2e import build_batched_e2e, load_model_checkpoint
+    from panodepth_torch.kernels import groupnorm as kg
+    from panodepth_torch.kernels import jacobi as kj
+    from panodepth_torch.parallel import mesh as pmesh
+    from panodepth_torch.parallel import multihost as mh
+
+    mh.initialize(f"127.0.0.1:{port}", TRAIN_RANKS, rank, device="cuda")
+    mesh = pmesh.make_mesh()
+    # the collectives of parallel/multihost.py hand gloo CUDA tensors
+    dev = mesh.device
+    ones = mh.all_reduce([torch.ones(3, device=dev)])[0]
+    got = torch.full((3,), float(rank), device=dev)
+    mh.broadcast_([got])
+    gathered = mh.all_gather(torch.full((1, 2), rank, dtype=torch.uint16,
+                                        device=dev))
+    gloo_cuda = dict(
+        all_reduce=ones.device.type == "cuda" and bool((ones == 2).all()),
+        broadcast=bool((got == 0).all()),
+        all_gather=gathered.cpu().tolist() == [[0, 0], [1, 1]])
+    cfg = MergeConfig(layout_name="5fold_leres", out_width=2048)
+    z = np.load(os.path.join(root, "dp_in.npz"))
+    # the global batch on the card: each rank's rows are views of it
+    emaps = torch.from_numpy(np.stack([_as01(z[f"base{k}"])
+                                       for k in DP_ORDER])).to(mesh.device)
+    pmaps = torch.from_numpy(np.stack([_as01(z[f"views{k}"])
+                                       for k in DP_ORDER])).to(mesh.device)
+    rows = len(DP_ORDER) // mesh.dp
+    merge = pmesh.batched_merge(cfg, mesh)
+    kj.LAUNCHES = 0
+    out, abcd = merge(emaps, pmaps)
+    torch.cuda.synchronize()
+    merge_launches = dict(jacobi=kj.LAUNCHES)
+    merge_ms = _timed(lambda: merge(emaps, pmaps)) / rows
+    del emaps, pmaps
+
+    persp, _ = load_model_checkpoint(PERSP_CKPT, device=mesh.device)
+    base, _ = load_model_checkpoint(BASE_CKPT, device=mesh.device)
+    full, _, _ = build_batched_e2e(persp, cfg, view_width=256,
+                                   base_model=base, base_w=512, mesh=mesh)
+    rgbs = torch.stack([_pano_feed(z[f"rgb{k}"], mesh.device)
+                        for k in range(2)])
+    kj.LAUNCHES = kg.LAUNCHES = 0
+    e2e, _ = full(rgbs)
+    torch.cuda.synchronize()
+    e2e_launches = dict(jacobi=kj.LAUNCHES, group_norm=kg.LAUNCHES)
+    e2e_ms = _timed(lambda: full(rgbs)) / (len(rgbs) // mesh.dp)
+    got = dict(merge=out.cpu().numpy(), abcd=abcd.cpu().numpy(),
+               e2e=e2e.cpu().numpy())
+    if rank == 0:
+        np.savez(os.path.join(root, "dp_out.npz"), **got)
+    mh.barrier("dp-done")
+    _rank_line(dict(
+        rank=rank, backend=mesh.backend, dp=mesh.dp, gloo_cuda=gloo_cuda,
+        merge_launches=merge_launches, e2e_launches=e2e_launches,
+        merge_ms_per_pano=merge_ms, e2e_ms_per_pano=e2e_ms,
+        sha256={k: hashlib.sha256(v.tobytes()).hexdigest()
+                for k, v in got.items()}))
+    mh.shutdown()
+    return 0
+
+
+class DPPair:
+    """The dp pair: two ranks of :func:`dp_rank` in child processes at
+    background priority, started with phase train's children on inputs
+    written here (phase merge's scenes, the two panoramas), awaited before
+    phase batched; phase graphs holds their gathered outputs bit-equal to
+    the one-process batch-4 merge and batch-2 e2e graph (:meth:`check`)."""
+
+    def __init__(self, scenes, rgbs_u8):
+        self.root = tempfile.mkdtemp(prefix="panodepth_smoke_dp_")
+        t0 = time.monotonic()
+        np.savez(os.path.join(self.root, "dp_in.npz"), **{
+            f"base{k}": sc["base"] for k, sc in enumerate(scenes)}, **{
+            f"views{k}": np.stack(sc["views"]) for k, sc in
+            enumerate(scenes)}, **{
+            f"rgb{k}": r for k, r in enumerate(rgbs_u8)})
+        self.write_s = time.monotonic() - t0
+        port = _free_port()
+        self.logs = [os.path.join(self.root, f"rank{r}.log")
+                     for r in range(TRAIN_RANKS)]
+        self.procs = []
+        for r, log in enumerate(self.logs):
+            with open(log, "w") as out:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     "--dp-worker", str(r), str(port), self.root],
+                    cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                    text=True, preexec_fn=_background,
+                    env=dict(os.environ, **ONE_THREAD)))
+        self.t0 = t0
+        print(f"dp: two ranks started (inputs written in {self.write_s:.2f} "
+              f"s)", flush=True)
+
+    def wait(self):
+        """Wait for both ranks; the records of both (raises unless both
+        exited 0)."""
+        recs = []
+        for r, (proc, log) in enumerate(zip(self.procs, self.logs)):
+            try:
+                proc.wait(timeout=DP_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            with open(log) as fp:
+                out = fp.read()
+            if proc.returncode != 0:
+                raise AssertionError(f"dp rank {r}: exit {proc.returncode}\n"
+                                     f"{out[-4000:]}")
+            recs.append(_rank_record(out, f"dp rank {r}"))
+        print(f"dp: both ranks have ended ({time.monotonic() - self.t0:.2f} "
+              f"s after their start)", flush=True)
+        self.recs = recs
+        return recs
+
+    def check(self, merge4, abcd4, e2e2, smi):
+        """The gathered outputs (both ranks' hashes equal) bit-equal to the
+        one-process batch-4 merge (``merge4``, ``abcd4``) and batch-2 e2e
+        graph (``e2e2``), and each rank's launches: the Jacobi's 26 and
+        the GroupNorm's 29 a forward, counted at the warm-ups and the
+        capture of its graph (a batch of 2 and of 1 a rank)."""
+        from panodepth_torch import MergeConfig
+        from panodepth_torch.kernels import groupnorm as kg
+
+        z = np.load(os.path.join(self.root, "dp_out.npz"))
+        want = dict(merge=merge4, abcd=abcd4, e2e=e2e2)
+        equal = {k: bool(np.array_equal(z[k], v)) for k, v in want.items()}
+        same_hash = self.recs[0]["sha256"] == self.recs[1]["sha256"]
+        per_pano = sum(jacobi_launches(MergeConfig(
+            layout_name="5fold_leres", out_width=2048)))
+        want_launches = dict(
+            merge_launches=dict(jacobi=graph_launches(per_pano)),
+            e2e_launches=dict(jacobi=graph_launches(per_pano),
+                              group_norm=graph_launches(
+                                  GN_CALLS * kg.launches_per_call())))
+        launches_ok = all(rec[k] == v for rec in self.recs
+                          for k, v in want_launches.items())
+        gloo_ok = all(all(rec["gloo_cuda"].values()) for rec in self.recs)
+        print(f"dp: gloo's collectives on CUDA tensors (all-reduce, "
+              f"broadcast, all-gather of u16), each rank: "
+              f"{[rec['gloo_cuda'] for rec in self.recs]}")
+        for rec in self.recs:
+            print(f"dp rank {rec['rank']} of {rec['dp']} ({rec['backend']}): "
+                  f"merge launches {rec['merge_launches']}, e2e launches "
+                  f"{rec['e2e_launches']} (expected {want_launches}); ms a "
+                  f"panorama (host clock to a synchronize, median of 5, both "
+                  f"ranks and other work sharing the card): merge "
+                  f"{rec['merge_ms_per_pano']!r}, e2e "
+                  f"{rec['e2e_ms_per_pano']!r}; card: {smi}")
+        print(f"dp: gathered outputs bit-equal to one process (batch-4 "
+              f"merge, batch-2 e2e graph) {equal}; both ranks hold the same "
+              f"bits {same_hash}")
+        if not (all(equal.values()) and same_hash and launches_ok
+                and gloo_ok):
+            raise AssertionError("dp pair: outputs or launches")
+        return dict(ranks=self.recs, equal=equal, write_s=self.write_s)
+
+    def close(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
 class Trainers:
     """Phase train's ``train_cli`` runs in child processes: the zoo recipe
-    with its teacher for 3 steps on --synth, and for 4 steps on the file
-    dataset (written here on the card) with --augment --corrupt
-    --eval-every 2 --trace.  Started before phase cli-e2e (:meth:`start`),
+    with its teacher for 3 steps on --synth as two ranks of one run
+    (``--coordinator``, both on cuda:0 over gloo, 8 rows each, through
+    :func:`train_rank`), and for 4 steps on the file dataset (written here
+    on the card) with --augment --corrupt --eval-every 2 --trace in one
+    process.  Started before phase cli-e2e (:meth:`start`),
     awaited when phase serve begins, before its profiled checks
     (:meth:`wait`), checked in phase train; each child's output goes to a
     file in ``root``."""
@@ -3924,14 +4207,20 @@ class Trainers:
         self.trace = os.path.join(self.root, "trace")
         self.procs, self.logs, self.files = {}, {}, None
 
-    def _spawn(self, name, args):
+    def _spawn(self, name, args, rank=None):
+        """``train_cli`` with ``args`` in a child; with ``rank``, as a rank of
+        the two-process run through :func:`train_rank`."""
         self.logs[name] = os.path.join(self.root, name + ".log")
+        cmd = ["-m", "panodepth_torch.train_cli"] if rank is None else [
+            os.path.join(ROOT, "chip_smoke.py"), "--train-rank"]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        if rank is not None:  # two ranks beside the other children
+            env.update(ONE_THREAD)
         with open(self.logs[name], "w") as out:
             self.procs[name] = subprocess.Popen(
-                [sys.executable, "-m", "panodepth_torch.train_cli", *args],
+                [sys.executable, *cmd, *args],
                 cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, text=True,
-                env=dict(os.environ, PYTHONPATH=ROOT),
-                preexec_fn=_background)
+                env=env, preexec_fn=_background)
 
     def start(self):
         t0 = time.monotonic()
@@ -3939,17 +4228,23 @@ class Trainers:
         recipe = ["--batch-size", str(TRAIN_BATCH), "--lr", str(TRAIN_LR),
                   "--pano-width", "512", "--log-every", "1",
                   "--distill-from", TEACHER_CKPT, "--distill-weight", "0.5"]
-        self._spawn("synth", ["fastpano", "x", "x", self.ckpt["synth"],
-                              "--synth", "--synth-version", "mix",
-                              "--steps", "3", *recipe])
+        port = _free_port()
+        for r in range(TRAIN_RANKS):
+            self._spawn(f"synth{r}", [
+                "fastpano", "x", "x", self.ckpt["synth"], "--synth",
+                "--synth-version", "mix", "--steps", str(TRAIN_CLI_STEPS),
+                *recipe, "--coordinator", f"127.0.0.1:{port}",
+                "--num-processes", str(TRAIN_RANKS), "--process-id", str(r)],
+                rank=r)
         self._spawn("files", ["fastpano", self.files["rgb"],
                               self.files["gt"], self.ckpt["files"],
                               "--augment", "--corrupt", "--steps", "4",
                               "--eval-every", "2", "--trace", self.trace,
                               *recipe])
         self.t0 = t0
-        print(f"train: both train_cli children started (the file dataset "
-              f"written first) in {time.monotonic() - t0:.2f} s", flush=True)
+        print(f"train: the train_cli children started (the file dataset "
+              f"written first; --synth as {TRAIN_RANKS} ranks) in "
+              f"{time.monotonic() - t0:.2f} s", flush=True)
 
     def wait(self):
         """Wait for both children (no check here)."""
@@ -3960,7 +4255,7 @@ class Trainers:
                 proc.kill()
                 proc.wait()
         if self.procs:
-            print(f"train: both train_cli children have ended (awaited "
+            print(f"train: the train_cli children have ended (awaited "
                   f"{time.monotonic() - self.t0:.2f} s after their start)",
                   flush=True)
 
@@ -4068,16 +4363,52 @@ def _merge_debug_nans(cfg, scene, merged0):
     return dict(launches=launches, seconds=secs)
 
 
-def _train_cli_check(trainers, persp, rgbs_u8):
-    """The --synth child's exports: the sidecar, ``fastpano_final`` and its
-    npz, which ``load_model_checkpoint`` reads; the e2e graph (both
-    kernels) on those weights beside the zoo NF net."""
+def _train_cli_ranks(trainers, smi):
+    """The two-process --synth run: both ranks exited 0, only rank 0 said
+    ``[train] done``, each named its backend, rank 0 logged the final
+    checkpoint's digest agreeing over the ranks, and each rank's teacher
+    ran 31 GroupNorm launches a step; each rank's step ms and idle share."""
+    outs = [trainers.output(f"synth{r}") for r in range(TRAIN_RANKS)]
+    recs = [_rank_record(out, f"train_cli rank {r}")
+            for r, out in enumerate(outs)]
+    print("train_cli rank 0: " + " | ".join(
+        line for line in outs[0].splitlines()
+        if line.startswith(("[train]", "[multihost]")))[-900:])
+    want = TEACHER_NORMS * TRAIN_CLI_STEPS
+    backends = [next((l.split("backend ")[1].split()[0]
+                      for l in out.splitlines()
+                      if l.startswith("[multihost]")), None) for out in outs]
+    done = ["[train] done" in out for out in outs]
+    digest = (f"[train] checkpoint final: the state agrees over the "
+              f"{TRAIN_RANKS} processes (digest)") in outs[0]
+    for rec, backend in zip(recs, backends):
+        steady = rec["step_ms"][1]
+        print(f"train_cli rank {rec['rank']} ({backend}): group_norm "
+              f"launches {rec['group_norm']} (expected {want}: the teacher's "
+              f"{TEACHER_NORMS} a step); step ms (host clock to a "
+              f"synchronize, batch {TRAIN_BATCH // TRAIN_RANKS} a rank, both "
+              f"ranks and other work sharing the card) {rec['step_ms']!r}, "
+              f"the third step's device busy {rec['busy_ms']!r} ms, idle "
+              f"share {1 - rec['busy_ms'][0] / steady!r} of the second's; "
+              f"card: {smi}")
+    print(f"train_cli ranks: [train] done by rank {done}, backends "
+          f"{backends}, final digest agreed {digest}")
+    if done != [True] + [False] * (TRAIN_RANKS - 1) or not digest or \
+            None in backends or any(r["group_norm"] != want for r in recs):
+        raise AssertionError("train_cli ranks: done lines, digest, backend "
+                             "or teacher launches")
+    return dict(ranks=recs, backends=backends)
+
+
+def _train_cli_check(trainers, persp, rgbs_u8, smi):
+    """The two-process --synth run's ranks (:func:`_train_cli_ranks`) and
+    its exports: the sidecar, ``fastpano_final`` and its npz, which
+    ``load_model_checkpoint`` reads; the e2e graph (both kernels) on those
+    weights beside the zoo NF net."""
     from panodepth_torch.e2e import load_model_checkpoint
 
-    out = trainers.output("synth")
+    ranks = _train_cli_ranks(trainers, smi)
     tmp = trainers.ckpt["synth"]
-    print("train_cli: " + " | ".join(
-        line for line in out.splitlines() if "[train]" in line)[-600:])
     for name in ("fastpano.config.json", "fastpano_final",
                  "fastpano_final.params.npz"):
         if not os.path.exists(os.path.join(tmp, name)):
@@ -4095,7 +4426,7 @@ def _train_cli_check(trainers, persp, rgbs_u8):
     seen = sum(n for _, n, key in events if "gn_cluster" in key)
     print(f"train_cli weights: one eager forward under the profiler, "
           f"{seen} groupnorm launches of {GN_CALLS}")
-    return dict(out, eager_profiled_launches=seen)
+    return dict(out, eager_profiled_launches=seen, ranks=ranks)
 
 
 def _train_evaluate():
@@ -4180,16 +4511,16 @@ class _Parts:
               flush=True)
 
 
-def phase_train(cfg, scenes, merged0, persp, rgbs_u8, trainers):
+def phase_train(cfg, scenes, merged0, persp, rgbs_u8, trainers, smi):
     """Training at full width on the card: FastPanoNet with the zoo recipe
     and its distillation teacher, the NF perspective net, each also on the
     file dataset (decode, --augment, --corrupt) in turns against --synth,
     two steps of each other family, the card's step against the CPU's, the
     corruption on the card against the CPU's, ``evaluate`` on the zoo's
     FastPanoNet clean and with --corrupt, the merge CLI with --debug-nans,
-    and ``trainers``' two ``train_cli`` runs (--synth; files with the
-    holdout and --trace; run beside phases cli-e2e and stage-a) with the
-    e2e graph on their weights."""
+    and ``trainers``' two ``train_cli`` runs (--synth as two ranks; files
+    with the holdout and --trace; run beside phases cli-e2e and stage-a)
+    with the e2e graph on their weights."""
     from panodepth_torch.e2e import load_model_checkpoint
 
     parts = _Parts("train")
@@ -4216,7 +4547,7 @@ def phase_train(cfg, scenes, merged0, persp, rgbs_u8, trainers):
     ev = _train_evaluate()
     nans = _merge_debug_nans(cfg, scenes[0], merged0)
     parts.done("card vs cpu, evaluate, merge --debug-nans")
-    cli_e2e = _train_cli_check(trainers, persp, rgbs_u8)
+    cli_e2e = _train_cli_check(trainers, persp, rgbs_u8, smi)
     cli_files = _train_cli_files_check(trainers, persp, rgbs_u8)
     parts.done("train_cli children's checks")
     return dict(fastpano=fast, perspective_nf=nf, families=others,
@@ -4252,6 +4583,7 @@ def main():
     cfg_4096 = MergeConfig(layout_name="5fold_leres", out_width=4096)
     serve_tmp = tempfile.mkdtemp(prefix="panodepth_smoke_serve_")
     trainers = Trainers()
+    dp = None
     # SliceNet's export, the longest (90-135 s), runs from here on, the
     # other exports from phase stage-a on, each a child at background
     # priority on one thread, so that phase families times its graphs
@@ -4277,20 +4609,24 @@ def main():
             models = phase_models(persp, base, rgbs[0])
         with Phase("e2e"):
             e2e = phase_e2e(persp, base, rgbs)
-        # phase train's two train_cli children run beside phases cli-e2e
-        # and stage-a, which profile nothing (~20 s), and are awaited when
-        # phase serve begins, before its profiled checks
+        # phase train's train_cli children (the --synth run as two ranks)
+        # and the dp pair run beside phases cli-e2e and stage-a, which
+        # profile nothing (~20 s); the dp pair is awaited before phase
+        # batched and checked in phase graphs, the train_cli children
+        # awaited when phase serve begins, before its profiled checks
         trainers.start()
+        dp = DPPair(scenes, rgbs)
         with Phase("cli-e2e"):
             phase_cli_e2e(rgbs, scenes[0]["gt"], e2e)
         early.update(serve_exports_start(cfg, serve_tmp, SERVE_EXPORTS))
         with Phase("stage-a"):
             stage_a = phase_stage_a(cfg, scenes, rgbs)
+        dp.wait()
         with Phase("batched"):
             batched = phase_batched(cfg, cfg_4096)
         with Phase("graphs"):
             graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs,
-                                  e2e)
+                                  e2e, dp, smi)
         with Phase("families"):
             families = phase_families(persp, base, rgbs)
             families["gn_int8"]["cli_launches"] = phase_families_cli(
@@ -4300,7 +4636,7 @@ def main():
                                  early, trainers)
         with Phase("train"):
             trained = phase_train(cfg, scenes, merged0, persp, rgbs,
-                                  trainers)
+                                  trainers, smi)
     finally:
         for proc in early.values():
             if proc.poll() is None:
@@ -4308,6 +4644,8 @@ def main():
                 proc.communicate()
         shutil.rmtree(serve_tmp, ignore_errors=True)
         trainers.close()
+        if dp is not None:
+            dp.close()
 
     int8 = families["gn_int8"]
     quantized = int8["qconv"]["quantize"]
@@ -4323,7 +4661,11 @@ def main():
             e2e_graph=e2e["launches"]["jacobi"],
             serve_merge=served["merge"]["launches"]["jacobi"],
             serve_e2e=served["e2e"]["launches"]["jacobi"],
-            merge_debug_nans=trained["merge_debug_nans"]["launches"]),
+            merge_debug_nans=trained["merge_debug_nans"]["launches"],
+            **{f"dp_merge_rank{r['rank']}": r["merge_launches"]["jacobi"]
+               for r in graphs["dp"]["ranks"]},
+            **{f"dp_e2e_rank{r['rank']}": r["e2e_launches"]["jacobi"]
+               for r in graphs["dp"]["ranks"]}),
         ms_per_pano_by_batch=batched,
         device_ms_in_e2e_graph=e2e["kernel_ms"].get("jacobi"),
         levels=jac["levels"]), dict(
@@ -4354,7 +4696,11 @@ def main():
                 "launches_teacher"],
             evaluate_corrupt=trained["evaluate"]["corrupt"]["launches"],
             e2e_trained_files_fastpano=trained["cli_files"]["launches"][
-                "group_norm"]),
+                "group_norm"],
+            **{f"dp_e2e_rank{r['rank']}": r["e2e_launches"]["group_norm"]
+               for r in graphs["dp"]["ranks"]},
+            **{f"train_cli_rank{r['rank']}_teacher": r["group_norm"]
+               for r in trained["cli_e2e"]["ranks"]["ranks"]}),
         families={k: dict(v["groupnorm"], e2e_ms_per_pano=v["e2e"][
             "ms_per_pano"], e2e_idle_share=v["e2e"]["idle_share"])
             for k, v in families.items() if "groupnorm" in v}), dict(
@@ -4412,4 +4758,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-rank"]:
+        raise SystemExit(train_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--dp-worker"]:
+        raise SystemExit(dp_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                 sys.argv[4]))
     main()

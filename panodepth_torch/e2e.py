@@ -174,7 +174,7 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
                       base_model=None, base_w: int = 512,
                       extract_dtype: str = "auto", jacobi: str = "auto",
                       groupnorm: str = "auto", qconv: str = "auto",
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Batched e2e stages over (B, H, W, 3) RGB stacks (plus a (B, h, w)
     baseline stack when ``base_model`` is None).  Returns
     ``(full, models_stage, fuse_stage)``, each a ``graphs.Graphed``:
@@ -203,9 +203,16 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     nets' GroupNorms, ``qconv`` that of the int8 perspective graph's convs
     and ``jacobi`` that of the relaxation (``auto``: the CUDA kernels on the
     card, the plain versions on the CPU).
+
+    With ``mesh`` (``parallel.mesh.make_mesh()``) the stages are data
+    parallel over its ranks, on the rank's device (``device`` is then
+    ignored): each takes the global batch, runs this rank's ``B / dp``
+    rows through its graph, and gathers every output over the ranks after
+    the replay (``parallel.mesh.DataParallel``).  The forward needs no
+    collective, as in JAX; ``B`` must be divisible by ``dp``.
     """
     table = _resolve_extract_dtype(extract_dtype)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     relax = kjacobi.resolve(jacobi)
     kgroupnorm.resolve(groupnorm)
     kqconv.resolve(qconv)
@@ -289,10 +296,15 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         return out_u16, baselines
 
     nets = (persp_model, base_model)
-    return (graphs.Graphed(full, dev, nets, name="e2e.full", env=STAGE_ENV),
-            graphs.Graphed(models_stage, dev, nets, name="e2e.models_stage",
-                           env=STAGE_ENV),
-            graphs.Graphed(fuse_stage, dev, name="e2e.fuse_stage"))
+    stages = (graphs.Graphed(full, dev, nets, name="e2e.full", env=STAGE_ENV),
+              graphs.Graphed(models_stage, dev, nets,
+                             name="e2e.models_stage", env=STAGE_ENV),
+              graphs.Graphed(fuse_stage, dev, name="e2e.fuse_stage"))
+    if mesh is None:
+        return stages
+    from .parallel.mesh import DataParallel
+
+    return tuple(DataParallel(stage, mesh) for stage in stages)
 
 
 def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,

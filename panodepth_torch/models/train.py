@@ -1,10 +1,11 @@
 """Training: losses, the optimizer, the train step, checkpoints.
 
-Counterpart of ``panodepth/models/train.py`` on one device (its
-``shard_train_step`` has none yet):
+Counterpart of ``panodepth/models/train.py``:
 
 * the losses ``berhu_loss``, ``gradient_matching_loss`` and
-  ``depth_loss`` (train.py:22-55), ``stop_gradient`` as ``detach``;
+  ``depth_loss`` (train.py:22-55), ``stop_gradient`` as ``detach``; with
+  a ``reduce`` (a mesh's ``all_reduce``) each rank's part of the loss of
+  the global batch;
 * :func:`make_optimizer` (train.py:107-137): optax's
   ``chain(clip_by_global_norm(1.0), adamw(schedule, weight_decay))`` and
   the optional parameter EMA (``ema_of_params``), written out with optax's
@@ -19,6 +20,14 @@ Counterpart of ``panodepth/models/train.py`` on one device (its
   updates the parameters, moments and EMA in place.  Under
   ``debug.nan_checks`` (``--debug-nans``) it checks the parameters, the
   loss, the gradients and the updated parameters for NaN;
+* :func:`shard_train_step` (train.py:190-200): the step data parallel
+  over a mesh's ranks.  JAX differentiates the loss of the global batch,
+  whose BerHu threshold is the batch's largest error and whose
+  normalisers are the batch's mask sums; so each rank takes the largest
+  error and the normalisers over the ranks (``reduce``), divides its own
+  sums by them, and the ranks' gradients and losses are summed: the
+  gradient of the global loss, on every rank the same, so the clip,
+  AdamW and the EMA keep the ranks' states equal;
 * checkpoints: the full state in torch's format in a directory
   ``<model>_<tag>`` (JAX's orbax directory names), and
   :func:`save_params_npz`, the zoo's ``*.params.npz`` (flax paths, flax
@@ -44,21 +53,32 @@ from .. import debug
 from . import weights
 
 
-def berhu_loss(pred, target, mask=None):
-    """Reverse Huber: L1 near zero, scaled L2 beyond c = 0.2 * max|err|."""
+def berhu_loss(pred, target, mask=None, reduce=None):
+    """Reverse Huber: L1 near zero, scaled L2 beyond c = 0.2 * max|err|.
+    With ``reduce(t, op)`` (``op`` ``sum`` or ``max`` over the ranks) this
+    rank's part of the loss of the ranks' batches together: ``c`` from
+    their largest error, this rank's sum over their mask count."""
     err = (pred - target).abs()
     if mask is not None:
         err = torch.where(mask, err, 0.0)
-    c = 0.2 * err.max().detach() + 1e-12
+    top = err.max().detach()
+    c = 0.2 * (top if reduce is None else reduce(top, "max")) + 1e-12
     l2 = (err * err + c * c) / (2.0 * c)
     loss = torch.where(err <= c, err, l2)
-    if mask is None:
-        return loss.mean()
-    return loss.sum() / torch.clamp_min(mask.sum().to(loss.dtype), 1.0)
+    if reduce is None:
+        if mask is None:
+            return loss.mean()
+        return loss.sum() / torch.clamp_min(mask.sum().to(loss.dtype), 1.0)
+    count = torch.tensor(loss.numel(), device=loss.device) if mask is None \
+        else mask.sum()
+    return loss.sum() / torch.clamp_min(
+        reduce(count, "sum").to(loss.dtype), 1.0)
 
 
-def gradient_matching_loss(pred, target, mask=None, scales: int = 4):
-    """Multi-scale log-depth gradient matching (MiDaS-style)."""
+def gradient_matching_loss(pred, target, mask=None, scales: int = 4,
+                           reduce=None):
+    """Multi-scale log-depth gradient matching (MiDaS-style); ``reduce`` as
+    in :func:`berhu_loss` (each scale's mask sum over the ranks)."""
     eps = 1e-4
     diff = torch.log(torch.clamp_min(pred, eps)) - torch.log(
         torch.clamp_min(target, eps))
@@ -69,13 +89,17 @@ def gradient_matching_loss(pred, target, mask=None, scales: int = 4):
         mm = m[:, ::2 ** s, ::2 ** s]
         gx = (d[:, :, 1:] - d[:, :, :-1]).abs() * mm[:, :, 1:] * mm[:, :, :-1]
         gy = (d[:, 1:, :] - d[:, :-1, :]).abs() * mm[:, 1:, :] * mm[:, :-1, :]
-        total = total + (gx.sum() + gy.sum()) / torch.clamp_min(mm.sum(), 1.0)
+        den = mm.sum() if reduce is None else reduce(mm.sum(), "sum")
+        total = total + (gx.sum() + gy.sum()) / torch.clamp_min(den, 1.0)
     return total / scales
 
 
-def depth_loss(pred, target, mask=None, grad_weight: float = 0.5):
-    return berhu_loss(pred, target, mask) + grad_weight * \
-        gradient_matching_loss(pred, target, mask)
+def depth_loss(pred, target, mask=None, grad_weight: float = 0.5,
+               reduce=None):
+    """BerHu plus ``grad_weight`` x gradient matching; with ``reduce`` this
+    rank's part of the ranks' loss (their parts sum to it)."""
+    return berhu_loss(pred, target, mask, reduce) + grad_weight * \
+        gradient_matching_loss(pred, target, mask, reduce=reduce)
 
 
 def make_schedule(lr: float, steps: Optional[int] = None, warmup: int = 200):
@@ -224,8 +248,10 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
     ``loss`` and ``grad_norm`` (the gradients' global norm before the clip)
     as 0-d device tensors.  ``teacher_fn`` (rgb -> depth01) adds
     ``distill_weight`` x the depth loss against its prediction, taken
-    under ``no_grad``.  ``step.value_and_grad(state, batch)`` gives the
-    loss and gradients alone."""
+    under ``no_grad``.  ``step.value_and_grad(state, batch, reduce=None)``
+    gives the loss and gradients alone (with ``reduce``, this rank's part
+    of the ranks' loss, :func:`depth_loss`), ``step.apply(state, loss,
+    grads)`` the update."""
     from torch.utils.checkpoint import checkpoint
 
     from ..pipeline import true_f32
@@ -237,19 +263,19 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
             return checkpoint(model, rgb, use_reentrant=False)
         return model(rgb)
 
-    def value_and_grad(state: TrainState, batch):
+    def value_and_grad(state: TrainState, batch, reduce=None):
         """(loss, gradients in the parameters' order) at ``state``."""
         rgb, depth, mask = batch
         params = list(state.params.values())
         debug.check("parameters entering the step", state.params)
         with true_f32(), torch.enable_grad():
             pred = forward(rgb)
-            loss = depth_loss(pred, depth, mask, grad_weight)
+            loss = depth_loss(pred, depth, mask, grad_weight, reduce)
             if teacher_fn is not None:
                 with torch.no_grad():
                     t = teacher_fn(rgb)
-                loss = loss + distill_weight * depth_loss(pred, t, mask,
-                                                          grad_weight)
+                loss = loss + distill_weight * depth_loss(
+                    pred, t, mask, grad_weight, reduce)
             debug.check("loss", loss)
             try:
                 grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -263,8 +289,7 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
         debug.check("gradients", dict(zip(state.params, grads)))
         return loss.detach(), grads
 
-    def step(state: TrainState, batch):
-        loss, grads = value_and_grad(state, batch)
+    def apply(state: TrainState, loss, grads):
         params = list(state.params.values())
         with torch.no_grad():
             gn = global_norm(grads)
@@ -274,7 +299,39 @@ def make_train_step(model: nn.Module, tx: Optional[Optimizer] = None,
         state.step += 1
         return state, {"loss": loss, "grad_norm": gn}
 
+    def step(state: TrainState, batch):
+        return apply(state, *value_and_grad(state, batch))
+
     step.value_and_grad = value_and_grad
+    step.apply = apply
+    return step
+
+
+def shard_train_step(step_fn: Callable, mesh) -> Callable:
+    """``step_fn`` (from :func:`make_train_step`) data parallel over the
+    ranks of ``mesh`` (``parallel/mesh.py``): each rank passes its rows of
+    the global batch; the loss is the global batch's (the largest error
+    and the normalisers over the ranks, ``depth_loss``'s ``reduce``), its
+    gradients summed over the ranks in one all-reduce with the ranks'
+    losses, and the update runs on the same sums on every rank.  The
+    state must start equal on every rank (``multihost.replicate``)."""
+    from ..parallel import multihost as mh
+
+    def value_and_grad(state: TrainState, batch):
+        loss, grads = step_fn.value_and_grad(state, batch,
+                                             reduce=mesh.all_reduce)
+        if mesh.dp == 1:
+            return loss, grads
+        summed = mh.all_reduce([loss.reshape(1)] + list(grads), "sum")
+        debug.check("gradients summed over the ranks",
+                    dict(zip(state.params, summed[1:])))
+        return summed[0].reshape(()), summed[1:]
+
+    def step(state: TrainState, batch):
+        return step_fn.apply(state, *value_and_grad(state, batch))
+
+    step.value_and_grad = value_and_grad
+    step.apply = step_fn.apply
     return step
 
 

@@ -1,7 +1,7 @@
 """Training CLI: ``python -m panodepth_torch.train_cli <model> rgb/ gt/
 ckpt/ [options]``.
 
-Counterpart of ``panodepth/train_cli.py`` on one device: every family
+Counterpart of ``panodepth/train_cli.py``: every family
 (``perspective`` GN or NF, ``panoramic`` GN or NF, ``hohonet``,
 ``bifuse``, ``slicenet``, ``fastpano``) at the JAX widths
 (``--width-scale``), the step of ``models/train.py`` (AdamW with warmup
@@ -33,8 +33,19 @@ The zoo's FastPanoNet recipe on the card::
         --distill-from zoo/panoramic_final.params.npz --distill-weight 0.5
 
 (``--synth --synth-version mix`` in place of the folders trains on
-procedural scenes.)  The multi-process flags are refused with the ROADMAP
-item that brings them.
+procedural scenes.)
+
+Data parallel over processes (``parallel/multihost.py``): run one process
+per rank with ``--coordinator HOST:PORT --num-processes N --process-id
+i``.  ``--batch-size`` is the global batch, each rank loads its ``1/N``
+(files split round-robin after the holdout, scenes from seeds of its
+own), the gradients of the global batch's loss are summed over the ranks
+(``models/train.shard_train_step``), and the state is replicated from
+rank 0; only rank 0 logs, writes the sidecar, ``--metrics-out``, the
+trace and the checkpoints, which every rank reaches together (their
+digests checked equal).  A SIGTERM or SIGINT on any rank drains the run:
+the rank announces a stop step through the store, every rank steps
+through it, and all checkpoint under its tag and exit 0.
 """
 
 from __future__ import annotations
@@ -49,16 +60,9 @@ import time
 FAMILIES = ("perspective", "panoramic", "hohonet", "bifuse", "slicenet",
             "fastpano")
 
-# JAX flags that come with later work: parsed, so that passing one is
-# refused with where it stands instead of being taken for something else
-_NOT_PORTED = {
-    "coordinator": "--coordinator (multi-process data parallel; ROADMAP "
-                   "Queue 1 item 4)",
-    "num_processes": "--num-processes (multi-process data parallel; "
-                     "ROADMAP Queue 1 item 4)",
-    "process_id": "--process-id (multi-process data parallel; ROADMAP "
-                  "Queue 1 item 4)",
-}
+# the flags of a multi-process run, which come together
+_MULTIPROCESS = ("coordinator", "num_processes", "process_id")
+PREEMPT_KEY = "panodepth/preempt-stop"
 
 
 def build_parser():
@@ -141,16 +145,33 @@ def build_parser():
                    help="raise FloatingPointError on the first NaN in a "
                         "step's parameters, loss or gradients, naming it and "
                         "the step (autograd's anomaly detection on)")
-    late = p.add_argument_group("not ported yet (refused)")
-    for name in _NOT_PORTED:
-        late.add_argument("--" + name.replace("_", "-"), default=None)
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process data parallel: the store's address "
+                        "(rank 0 serves it); run one process per rank with "
+                        "--num-processes and --process-id.  --batch-size is "
+                        "the global batch; each rank loads its slice, and "
+                        "the gradients are summed over the ranks (nccl with "
+                        "a card a rank, else gloo; parallel/multihost.py)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
 def _refusal(args):
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            return f"{what} is not ported yet"
+    given = [n for n in _MULTIPROCESS if getattr(args, n) is not None]
+    if given and len(given) < len(_MULTIPROCESS):
+        flag = lambda n: "--" + n.replace("_", "-")
+        return (f"{', '.join(flag(n) for n in given)} given without "
+                f"{', '.join(flag(n) for n in _MULTIPROCESS if n not in given)}"
+                f": a multi-process run takes --coordinator, "
+                f"--num-processes and --process-id together")
+    if given and not 0 <= args.process_id < args.num_processes:
+        return (f"--process-id {args.process_id} outside [0, "
+                f"{args.num_processes})")
+    if given and args.batch_size % args.num_processes:
+        return (f"--batch-size {args.batch_size} must be divisible by the "
+                f"process count ({args.num_processes}): --batch-size is the "
+                f"global batch, split over the ranks")
     if args.variant != "gn" and args.model not in ("perspective",
                                                    "panoramic"):
         return "--variant nf is a perspective/panoramic option"
@@ -233,12 +254,13 @@ def to_device(batch, device):
     return tuple(out)
 
 
-def _holdout(args, pairs, log):
+def _holdout(args, pairs, log, batch_size):
     """(training pairs, validation pairs or None, holdout): every 10th pair
     held out with --eval-every, or where the sidecar of the run being
     resumed says so (the split is sticky: a later run without
     --eval-every must not train on the held-out pairs); the validation
-    list padded by repetition to at least one batch."""
+    list padded by repetition to at least one batch of ``batch_size`` (a
+    rank's)."""
     holdout = bool(args.eval_every)
     sidecar = os.path.join(args.ckpt_dir, f"{args.model}.config.json")
     if not holdout and os.path.exists(sidecar):
@@ -259,7 +281,7 @@ def _holdout(args, pairs, log):
                          "(--eval-every)")
     log(f"[train] holding out {len(val_pairs)} pairs for --eval-every "
         f"validation")
-    while len(val_pairs) < args.batch_size:
+    while len(val_pairs) < batch_size:
         val_pairs = val_pairs * 2
     return pairs, val_pairs, True
 
@@ -287,23 +309,42 @@ def _train(args) -> int:
     from . import debug
     from .models import data as pdata
     from .models import layers, train as ptrain, weights
+    from .parallel import multihost as mh
+    from .parallel.mesh import make_mesh
     from .pipeline import resolve_device, true_f32
 
-    dev = resolve_device(args.device)
-    log = print
-    bs = args.batch_size
+    pidx, pcnt = 0, 1
+    if args.coordinator is not None:
+        # before the device is used: the rank's device comes with its rank
+        pidx, pcnt = mh.initialize(args.coordinator, args.num_processes,
+                                   args.process_id, device=args.device)
+        dev = mh.device()
+    else:
+        dev = resolve_device(args.device)
+    proc0 = pidx == 0
+    log = print if proc0 else (lambda *a, **k: None)
+    bs = args.batch_size // pcnt  # this rank's rows of the global batch
 
     pairs = val_pairs = None
     holdout = False
     if args.synth:
-        log(f"[train] on-device synthetic scenes, 1 process, device {dev}")
+        procs = "1 process" if pcnt == 1 else f"{pcnt} processes"
+        log(f"[train] on-device synthetic scenes, {procs}, device {dev}")
     else:
         pairs = pdata.discover_pairs(args.rgb_folder, args.gt_folder,
                                      args.dataset)
         if not pairs:
             raise SystemExit("no (rgb, gt) pairs found")
-        pairs, val_pairs, holdout = _holdout(args, pairs, log)
-        log(f"[train] {len(pairs)} pairs/host, 1 process(es), device {dev}")
+        # the holdout is taken before the split over the ranks, so it is
+        # the same on every rank
+        pairs, val_pairs, holdout = _holdout(args, pairs, log, bs)
+        if pcnt > 1:
+            pairs = mh.process_shard(pairs, pidx, pcnt)
+            if not pairs:
+                raise SystemExit(f"process {pidx}: no pairs after the split "
+                                 f"over {pcnt} processes")
+        log(f"[train] {len(pairs)} pairs/host, {pcnt} process(es), device "
+            f"{dev}")
 
     batch_kind = "perspective" if args.model == "perspective" else "pano"
     if args.corrupt:
@@ -340,9 +381,16 @@ def _train(args) -> int:
             log(f"[train] --resume: no checkpoint under {ckpt_path}_*, "
                 "starting fresh")
         else:
+            # every rank restores the same state from the shared folder
             state = ptrain.restore_checkpoint(latest, state)
             start_step = state.step
             log(f"[train] resumed {latest} at step {start_step}")
+
+    mesh = None
+    if pcnt > 1:
+        mesh = make_mesh()
+        # rank 0's state on every rank: they start equal
+        state = mh.replicate(mesh, state)
 
     def make_batches(seed, src=None, augment=None, corrupt=None):
         return batch_stream(
@@ -354,9 +402,11 @@ def _train(args) -> int:
             corrupt=args.corrupt if corrupt is None else corrupt,
             corrupt_prob=args.corrupt_prob)
 
-    # a resume offsets the seed: the continued run draws a fresh stream
-    # instead of replaying the batches already consumed
-    source, batches = make_batches(args.seed + start_step * 131)
+    # each rank draws a stream of its own; a resume offsets the seed, so
+    # that the continued run draws a fresh stream instead of replaying the
+    # batches already consumed
+    source, batches = make_batches(args.seed + pidx * 9973
+                                   + start_step * 131)
 
     teacher_fn = None
     if args.distill_from:
@@ -382,24 +432,39 @@ def _train(args) -> int:
     step_fn = ptrain.make_train_step(model, tx, remat=args.remat,
                                      teacher_fn=teacher_fn,
                                      distill_weight=args.distill_weight)
+    if mesh is not None:
+        step_fn = ptrain.shard_train_step(step_fn, mesh)
 
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    # the sidecar first, so that every checkpoint, an intermediate one left
-    # by a crash included, can be rebuilt
-    with open(os.path.join(args.ckpt_dir, f"{args.model}.config.json"),
-              "w") as fp:
-        json.dump(arch, fp)
+    if proc0:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        # the sidecar first, so that every checkpoint, an intermediate one
+        # left by a crash included, can be rebuilt
+        with open(os.path.join(args.ckpt_dir, f"{args.model}.config.json"),
+                  "w") as fp:
+            json.dump(arch, fp)
 
     def checkpoint(tag):
-        ptrain.save_checkpoint(f"{ckpt_path}_{tag}", state)
-        if tag == "final":
-            ptrain.save_params_npz(f"{ckpt_path}_final.params.npz",
-                                   state.params)
-            if args.ema is not None:
-                ptrain.save_params_npz(f"{ckpt_path}_final.ema.params.npz",
-                                       ptrain.ema_params(state))
+        """Every rank calls it: the state's host copy (its digest checked
+        equal over the ranks), written by rank 0, then a barrier, so that
+        no rank runs ahead of the write."""
+        host = state
+        if pcnt > 1:
+            host = mh.fetch_replicated(state)
+            log(f"[train] checkpoint {tag}: the state agrees over the "
+                f"{pcnt} processes (digest)", flush=True)
+        if proc0:
+            ptrain.save_checkpoint(f"{ckpt_path}_{tag}", host)
+            if tag == "final":
+                ptrain.save_params_npz(f"{ckpt_path}_final.params.npz",
+                                       host.params)
+                if args.ema is not None:
+                    ptrain.save_params_npz(
+                        f"{ckpt_path}_final.ema.params.npz",
+                        ptrain.ema_params(host))
+        mh.barrier(f"checkpoint-{tag}")
 
-    mout = open(args.metrics_out, "a") if args.metrics_out else None
+    mout = open(args.metrics_out, "a") if (proc0 and args.metrics_out) \
+        else None
 
     def emit(rec):
         if mout is not None:
@@ -408,16 +473,19 @@ def _train(args) -> int:
 
     # held-out validation: a fixed batch set from a seed stream disjoint
     # from training's (on files, from the held-out pairs, neither augmented
-    # nor corrupted), drawn once and re-scored in place
+    # nor corrupted), drawn once and re-scored in place; each rank draws
+    # its own rows of the global eval batches
     run_eval = None
     if args.eval_every:
         import itertools
 
-        src, stream = make_batches(args.seed + 999_331, src=val_pairs,
-                                   augment=False, corrupt=False)
+        src, stream = make_batches(args.seed + 999_331 + pidx * 7919,
+                                   src=val_pairs, augment=False,
+                                   corrupt=False)
         eval_data = [to_device(b, dev) for b in
                      itertools.islice(stream, args.eval_batches)]
         src.close()
+        reduce = None if mesh is None else mesh.all_reduce
 
         def run_eval(params):
             """The mean depth loss over the eval set with ``params`` (by
@@ -428,13 +496,25 @@ def _train(args) -> int:
                 for k, v in state.params.items():
                     v.copy_(params[k])
                 for rgb, depth, mask in eval_data:
-                    total += float(ptrain.depth_loss(model(rgb), depth, mask))
+                    loss = ptrain.depth_loss(model(rgb), depth, mask,
+                                             reduce=reduce)
+                    if reduce is not None:  # the ranks' parts
+                        loss = reduce(loss, "sum")
+                    total += float(loss)
                 for k, v in state.params.items():
                     v.copy_(own[k])
             return total / len(eval_data)
 
     trace = (debug.Trace(args.trace, "train", cuda=dev.type == "cuda")
-             if args.trace else None)
+             if args.trace and proc0 else None)
+    # Preemption.  SIGTERM / SIGINT set a flag; one process checkpoints the
+    # step it finished and exits 0.  Several: every step is a collective,
+    # so a rank that left alone would hang the others in the next one.
+    # The signalled rank announces a stop step through the store (the
+    # first writer wins), every rank polls it before each step and steps
+    # through it, then all checkpoint together.  The loss read back after
+    # each step keeps the ranks within a step of each other, so that
+    # ``caught_step + 2`` is a step no rank has passed when it polls.
     caught = {}
 
     def _on_signal(signum, frame):
@@ -443,23 +523,35 @@ def _train(args) -> int:
     prev = {s: signal.signal(s, _on_signal)
             for s in (signal.SIGTERM, signal.SIGINT)}
     interrupted = False
+    stop_at = None
     t0 = time.monotonic()
     try:
         for step, batch in enumerate(batches, start=start_step):
             if step >= args.steps:
+                break
+            if pcnt > 1 and stop_at is None:
+                v = mh.kv_try_get(PREEMPT_KEY)
+                if v is not None:
+                    stop_at = int(v)
+            if stop_at is not None and step > stop_at:
+                interrupted = True
                 break
             if trace is not None and step == start_step + 2:
                 # skip the first step and one warm step, then trace three
                 trace.start()
             with debug.where(f"train step {step}"):
                 state, metrics = step_fn(state, to_device(batch, dev))
+            if pcnt > 1:
+                # the step sync: no rank starts step k + 1 before every
+                # rank's step k is done (the drain's bound on the skew)
+                metrics["loss"].item()
             if trace is not None and trace.running and \
                     step == start_step + 4:
                 log(f"[train] profiler trace written to {trace.stop()}")
             if step % args.log_every == 0:
                 loss = float(metrics["loss"])
                 gn = float(metrics["grad_norm"])
-                rate = ((step + 1 - start_step) * bs
+                rate = ((step + 1 - start_step) * args.batch_size
                         / (time.monotonic() - t0))
                 log(f"[train] step {step} loss {loss:.4f} |g| {gn:.3f} "
                     f"({rate:.1f} img/s)", flush=True)
@@ -474,12 +566,19 @@ def _train(args) -> int:
                        if args.ema is not None else ""), flush=True)
                 emit(rec)
             if caught:
-                interrupted = True
-                checkpoint(str(step))
-                log(f"[train] {caught['sig']}: checkpointed at step "
-                    f"{step + 1}; restart with --resume to continue",
-                    flush=True)
-                break
+                if pcnt == 1:
+                    interrupted = True
+                    checkpoint(str(step))
+                    log(f"[train] {caught['sig']}: checkpointed at step "
+                        f"{step + 1}; restart with --resume to continue",
+                        flush=True)
+                    break
+                if stop_at is None:
+                    mh.kv_set_once(PREEMPT_KEY, str(step + 2))
+                    # another rank's announcement may have come first
+                    stop_at = int(mh.kv_try_get(PREEMPT_KEY))
+                    print(f"[train] p{pidx}: {caught['sig']}: draining to "
+                          f"collectively agreed step {stop_at}", flush=True)
             if step and step % args.ckpt_every == 0:
                 checkpoint(str(step))
     except BaseException:
@@ -504,6 +603,17 @@ def _train(args) -> int:
                 f"least 3 steps)")
     if not interrupted:
         checkpoint("final")
+    elif pcnt > 1:
+        # every rank stepped through stop_at: one checkpoint together
+        checkpoint(str(stop_at))
+        log(f"[train] preempted: collective checkpoint at step "
+            f"{stop_at + 1}; restart every process with --resume",
+            flush=True)
+    if mh.initialized():
+        # rank 0 may still be writing when another rank's loop ends
+        mh.barrier("train-done")
+        mh.shutdown()
+    if not interrupted:
         log(f"[train] done; checkpoint at {ckpt_path}_final "
             f"(+ params-only {ckpt_path}_final.params.npz)")
     return 0

@@ -4,6 +4,10 @@ Every scene is made with numpy from a fixed seed and handed to both
 packages, the JAX reference and the PyTorch port, as numpy arrays.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import torch
 
@@ -101,3 +105,59 @@ def zoo_pair(root, pano_width):
             json.dump(dict(arch, pano_width=pano_width), fp)
         paths.append(dst)
     return tuple(paths)
+
+
+# --- two-process runs (tests/test_torch_parallel.py, test_torch_multihost.py)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PAIR_TIMEOUT = 120  # seconds a spawned pair may take
+
+
+def free_port() -> int:
+    """A port the system has just handed out (a bind to port 0)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(argv, out=subprocess.PIPE):
+    """``python argv`` from the repository root, on one thread; the JAX
+    variables of the test process are not passed on (the ranks import no
+    JAX)."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    return subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                            stdout=out, stderr=subprocess.STDOUT, text=True)
+
+
+def _port_taken(text: str) -> bool:
+    return "address already in use" in text.lower()
+
+
+def run_pair(argv_of, timeout=PAIR_TIMEOUT):
+    """Rank 0 and rank 1 of ``argv_of(port, rank)`` together, each killed if
+    still running at the end; a port taken in between is picked again once.
+    Returns both ranks' outputs; asserts both exited 0."""
+    for attempt in range(2):
+        port = free_port()
+        procs = [spawn(argv_of(port, r)) for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if attempt == 0 and any(p.returncode for p in procs) and any(
+                _port_taken(o) for o in outs):
+            continue
+        break
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exit {p.returncode}:\n" \
+                                  f"{out[-3000:]}"
+    return outs

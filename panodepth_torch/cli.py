@@ -26,9 +26,11 @@ FastPanoNet (``zoo/fastpano_*``), the UniFuse-class net
 (``zoo/panoramic_*``), HoHoNet (``zoo/hohonet_*``), BiFuse
 (``zoo/bifuse_*``) or SliceNet (``zoo/slicenet_*``); ``--extract-dtype``
 picks the views' gather table, ``--p99`` the percentile's selection, and
-``PANODEPTH_BASE_FEED=box`` the baseline CNN's box feed, as in JAX.
-Counterpart of ``panodepth/cli.py``; what is not ported yet (the
-view-parallel ``--latency`` graph) is refused, never ignored.
+``PANODEPTH_BASE_FEED=box`` the baseline CNN's box feed, as in JAX;
+``--latency`` runs each panorama through the view-parallel graph over the
+ranks of an initialized process group (one rank from a plain ``python -m
+panodepth_torch``).  Counterpart of ``panodepth/cli.py``; a model-mode flag
+in file mode is refused, never ignored.
 """
 
 from __future__ import annotations
@@ -38,15 +40,11 @@ import sys
 
 from .kernels.jacobi import JACOBI_KINDS
 
-# flags of the JAX CLI that this package does not run yet: parsed, so that
-# passing one gets a clear refusal instead of being taken for something else
-_NOT_PORTED = {
-    "latency": "--latency (the view-parallel single-request graph)",
-    "latency_halo": "--latency-halo (the view-parallel single-request graph)",
-}
 # flags that only the model mode takes
 _MODEL_MODE = ("persp_int8", "baseline_ckpt", "view_width", "base_width",
-               "infer_norm", "extract_dtype", "p99")
+               "infer_norm", "extract_dtype", "p99", "latency",
+               "latency_halo")
+LATENCY_HALO = 10  # --latency-halo's default, as in JAX
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -130,6 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "views of packed16), pair16d the same dithered; "
                         "every table but f32 feeds the baseline CNN's "
                         "resize in bf16")
+    p.add_argument("--latency", action="store_true", default=None,
+                   help="with --persp-ckpt: view-parallel single-request "
+                        "mode — each panorama's view fan-out is sharded "
+                        "over ALL ranks (lowest per-request latency; "
+                        "use --batch-size for fleet throughput instead)")
+    p.add_argument("--latency-halo", type=int, default=None, metavar="K",
+                   help="with --latency: K-wide temporal-blocked halo "
+                        "exchanges in the width-sharded Jacobi (K-fold "
+                        "fewer collectives, bit-exact; default "
+                        f"{LATENCY_HALO})")
     p.add_argument("--png-level", type=int, default=None, metavar="0-9",
                    help="deflate level for the 16-bit result PNGs (always "
                         "lossless); sets PANODEPTH_PNG_LEVEL. Default 1: "
@@ -148,17 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "naming the stage and the panorama; the stages run "
                         "eagerly (the reference's oops! prints, "
                         "Depth.cpp:1600-1601)")
-    late = p.add_argument_group("not ported yet (refused)")
-    for name in _NOT_PORTED:  # with or without a value, as in JAX
-        late.add_argument("--" + name.replace("_", "-"), nargs="?",
-                          const=True, default=None)
     return p
 
 
 def _refusal(args) -> str | None:
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            return f"{what} is not ported yet"
     if args.batch_size < 1:
         return f"--batch-size must be >= 1, got {args.batch_size}"
     if not args.persp_ckpt:
@@ -216,6 +217,9 @@ def _run(args, cfg) -> None:
             persp_int8=bool(args.persp_int8),
             infer_norm=args.infer_norm or "auto",
             base_width=args.base_width, device=args.device,
+            latency=bool(args.latency),
+            latency_halo=(LATENCY_HALO if args.latency_halo is None
+                          else args.latency_halo),
         )
         return
     from .pipeline import run_batch

@@ -11,6 +11,10 @@ device with no pixels leaving it between stages:
     perspective CNN(views)          -> V perspective depths   (0~1)
     register_views + fuse           -> u16 panorama
 
+``run_batch_e2e(latency=True)`` runs one panorama at a time through the
+view-parallel graph of ``parallel/views.py`` instead, its views spread
+over the ranks of a process group.
+
 The baseline CNN is any zoo family (FastPanoNet, the UniFuse-class
 PanoBaselineNet, HorizonDepthNet, BiFuseNet, SliceNet), the perspective
 CNN NFPerspectiveNet or the GN PerspectiveDepthNet (or its int8 graph,
@@ -111,6 +115,40 @@ def box_feed(rgbs_u8, size):
     scale = np.float32(np.float32(1.0 / (fh * fw)) * np.float32(1.0 / 255.0))
     sums = rgbs_u8.reshape(b, h, fh, w, fw, 3).to(torch.float32).sum((2, 4))
     return (sums * float(scale)).to(torch.bfloat16)
+
+
+def baseline_of(base_model, rgb, rgb01, table: str, base_w: int,
+                groupnorm: str = "auto", feed: str = "bilinear"):
+    """The baseline CNN on one panorama (1, H, W, 3), ``rgb`` as given and
+    ``rgb01`` in 0~1: its input the ``box`` feed where ``feed`` asks for
+    it, the panorama is u8 and the feed's size divides it (JAX's gate),
+    else the antialiased bilinear resize, on bf16 for every table but
+    ``f32``."""
+    size = (base_w // 2, base_w)
+    if (feed == "box" and rgb.dtype == torch.uint8
+            and rgb.shape[1] % size[0] == 0 and rgb.shape[2] % size[1] == 0):
+        rb = box_feed(rgb, size)
+    else:
+        src = rgb01 if table == "f32" else rgb01.to(torch.bfloat16)
+        rb = resize_bilinear_nhwc(src, size)
+    # the route is set per call: graphs built with other routes may share
+    # this net
+    return pnorm.set_route(base_model, groupnorm)(rb)
+
+
+def depths_of(persp_model, views, groupnorm: str = "auto",
+              qconv: str = "auto"):
+    """The perspective CNN on one panorama's views of a shape (n, h, w, 3),
+    at multiples of 32 and back."""
+    h, w = views.shape[1:3]
+    nh, nw = _round32(h), _round32(w)
+    if (nh, nw) != (h, w):
+        views = resize_bilinear_nhwc(views, (nh, nw))
+    net = set_qconv_route(pnorm.set_route(persp_model, groupnorm), qconv)
+    depths = predict_depth01(net, views)
+    if (nh, nw) != (h, w):
+        depths = resize_bilinear(depths, (h, w))
+    return depths
 
 
 def _stack_if_uniform(maps):
@@ -223,37 +261,6 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
     plan = build_fusion_plan(cfg)
     groups = list(view_groups(layout, view_width).items())
 
-    def baseline_of(rgb, rgb01, feed):
-        """The baseline CNN on one panorama (1, H, W, 3), ``rgb`` as given
-        and ``rgb01`` in 0~1: its input the ``box`` feed where ``feed``
-        asks for it, the panorama is u8 and the feed's size divides it
-        (JAX's gate), else the antialiased bilinear resize, on bf16 for
-        every table but ``f32``."""
-        size = (base_w // 2, base_w)
-        if (feed == "box" and rgb.dtype == torch.uint8
-                and rgb.shape[1] % size[0] == 0
-                and rgb.shape[2] % size[1] == 0):
-            rb = box_feed(rgb, size)
-        else:
-            src = rgb01 if table == "f32" else rgb01.to(torch.bfloat16)
-            rb = resize_bilinear_nhwc(src, size)
-        # the route is set per call: graphs built with other routes may
-        # share this net
-        return pnorm.set_route(base_model, groupnorm)(rb)
-
-    def depths_of(views):
-        """The perspective CNN on one panorama's views of a shape (n, h, w,
-        3), at multiples of 32 and back."""
-        h, w = views.shape[1:3]
-        nh, nw = _round32(h), _round32(w)
-        if (nh, nw) != (h, w):
-            views = resize_bilinear_nhwc(views, (nh, nw))
-        net = set_qconv_route(pnorm.set_route(persp_model, groupnorm), qconv)
-        depths = predict_depth01(net, views)
-        if (nh, nw) != (h, w):
-            depths = resize_bilinear(depths, (h, w))
-        return depths
-
     # TF32 off while a stage runs (and so while it is captured), the
     # caller's flags back after it
     @true_f32()
@@ -262,9 +269,10 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         b = rgbs01.shape[0]
         if baselines is None:
             feed = base_feed()
-            baselines = torch.cat([baseline_of(rgbs[k:k + 1],
-                                               rgbs01[k:k + 1], feed)
-                                   for k in range(b)])
+            baselines = torch.cat([
+                baseline_of(base_model, rgbs[k:k + 1], rgbs01[k:k + 1],
+                            table, base_w, groupnorm, feed)
+                for k in range(b)])
             debug.check("baseline net's output", baselines)
         else:
             baselines = _as01(baselines)
@@ -274,7 +282,8 @@ def build_batched_e2e(persp_model, cfg: MergeConfig, view_width: int = 512,
         pmaps: List[torch.Tensor] = [None] * layout.num_views  # type: ignore
         for (h, w), idxs in groups:
             views = extract_group(src, layout.fovs[idxs], (h, w), table)
-            depths = torch.stack([depths_of(views[k]) for k in range(b)])
+            depths = torch.stack([depths_of(persp_model, views[k], groupnorm,
+                                            qconv) for k in range(b)])
             for j, i in enumerate(idxs):
                 pmaps[i] = depths[:, j]
         debug.check("perspective net's output", pmaps)
@@ -317,7 +326,8 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                   stream: str = "auto", jacobi: str = "auto",
                   extract_dtype: str = "auto", infer_norm: str = "auto",
                   persp_int8: bool = False, base_width=None, log=print,
-                  device="cuda"):
+                  device="cuda", latency: bool = False,
+                  latency_halo: int = 10):
     """The model-mode batch: RGB -> models -> registration -> fusion.
 
     The perspective checkpoint is mandatory; the baseline comes from a
@@ -338,7 +348,17 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
     ``infer_norm`` is the GroupNorm output type: ``auto`` is f32, as the
     JAX package runs off the TPU, or ``f32`` / ``bf16``.  ``persp_int8``
     runs the perspective CNN as the int8 graph (GN checkpoints only).
-    Returns the metrics of the gt-scored panoramas.
+
+    ``latency`` is the single-request mode: each panorama's views are
+    spread over the ranks of ``parallel.multihost.initialize`` (one
+    process without it) by the view-parallel graph
+    (``parallel.views.build_latency_e2e``, one per baseline shape), one
+    panorama a call, the next one decoding meanwhile; ``batch_size``,
+    ``jacobi`` and ``profile``'s split do not apply (logged as ignored).
+    Every rank takes the same panoramas and holds each output; rank 0
+    writes the files.  ``latency_halo`` is the temporal-blocking depth of
+    the width-sharded Jacobi's halo exchanges.  Returns the metrics of the
+    gt-scored panoramas.
     """
     if infer_norm not in ("auto", "f32", "bf16"):
         raise ValueError(f"infer_norm must be auto, f32 or bf16, "
@@ -365,16 +385,43 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
             raise SystemExit(f"--base-width: {base_arch['model']} has a "
                              f"fixed-width decoder; run it at its training "
                              f"width {base_arch.get('pano_width', 512)}")
-    full, models_stage, fuse_stage = build_batched_e2e(
-        persp_model, cfg, view_width=view_width, base_model=base_model,
-        base_w=base_w, extract_dtype=extract_dtype, jacobi=jacobi,
-        device=dev)
+    if latency:
+        from .parallel.views import build_latency_e2e, make_vp_mesh
+
+        mesh = make_vp_mesh(device=dev)
+        if batch_size != 1:
+            log("[run_batch_e2e] --latency runs one panorama per launch; "
+                "ignoring --batch-size")
+        if jacobi != "auto":
+            log("[run_batch_e2e] --latency always relaxes with the "
+                "width-sharded Jacobi; ignoring --jacobi")
+        if profile:
+            log("[run_batch_e2e] --latency profiles whole-graph ms only "
+                "(the sharded stages fuse; no per-stage split)")
+        lat_cache = {}
+
+        def lat_fn_for(base):
+            key = None if base_model is not None else tuple(base.shape[:2])
+            if key not in lat_cache:
+                lat_cache[key] = build_latency_e2e(
+                    persp_model, cfg, mesh, view_width=view_width,
+                    base_model=base_model, base_w=base_w,
+                    baseline_shape=key, extract_dtype=extract_dtype,
+                    halo=latency_halo)
+            return lat_cache[key]
+    else:
+        full, models_stage, fuse_stage = build_batched_e2e(
+            persp_model, cfg, view_width=view_width, base_model=base_model,
+            base_w=base_w, extract_dtype=extract_dtype, jacobi=jacobi,
+            device=dev)
 
     rgb_files = pio.filter_files(pio.list_images(rgb_folder),
                                  include, exclude, limit, shard)
     os.makedirs(result_folder, exist_ok=True)
     log(f"[run_batch_e2e] {len(rgb_files)} panoramas, on-device models, "
-        f"batch {batch_size}" + (", profiled stages" if profile else ""))
+        + (f"view-parallel latency mode over {mesh.sp} ranks" if latency
+           else f"batch {batch_size}")
+        + (", profiled stages" if profile else ""))
     stream_on = stream == "on"
 
     def load(f):
@@ -408,6 +455,10 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
             log(f"{i}/{len(rgb_files)} skip!")
             continue
         todo.append((i, f, raw))
+
+    if latency:
+        return _run_latency(todo, decode, lat_fn_for, mesh, cfg,
+                            result_folder, len(rgb_files), profile, log)
 
     all_metrics: List[pmetrics.Metrics] = []
     models_times: List[float] = []
@@ -494,4 +545,60 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                  "time_Models_avg:n/a (fused graph; use --profile) ")
         log(f"[run_batch_e2e] done: {len(fuse_times)} panoramas, " + split
             + f"time_Fuse_avg:{np.mean(fuse_times):.1f}")
+    return all_metrics
+
+
+def _run_latency(todo, decode, fn_for, mesh, cfg: MergeConfig,
+                 result_folder: str, n_files: int, profile: bool, log):
+    """``run_batch_e2e``'s latency loop: one panorama a call of the
+    view-parallel graph on every rank, the next one decoding meanwhile;
+    rank 0 writes ``<raw>.png`` and ``<raw>.aligned.txt``, every rank
+    returns the metrics.  The ranks meet at a barrier when rank 0's files
+    are written, so that a run after this one skips the same panoramas on
+    every rank."""
+    from .parallel import multihost as mh
+
+    writer = mesh.rank == 0
+    all_metrics: List[pmetrics.Metrics] = []
+    times, writes = [], []
+    pool = ThreadPoolExecutor(max_workers=2)
+    try:
+        nxt = pool.submit(decode, todo[0][1]) if todo else None
+        for k, (i, _, raw) in enumerate(todo):
+            rgb, base, gt = nxt.result()
+            nxt = (pool.submit(decode, todo[k + 1][1])
+                   if k + 1 < len(todo) else None)
+            fn = fn_for(base)
+            t0 = time.monotonic()
+            with debug.where("panorama " + raw):
+                out_u16, _, emap = fn(rgb) if base is None else fn(rgb, base)
+            out_np = out_u16.cpu().numpy()
+            ms = (time.monotonic() - t0) * 1000
+            times.append(ms)
+            if writer:
+                writes.append(pool.submit(
+                    pio.save_png16, os.path.join(result_folder, raw + ".png"),
+                    out_np))
+            if gt is not None:
+                m = pmetrics.paired_metrics(
+                    torch.as_tensor(gt, device=mesh.device), emap,
+                    torch.as_tensor(out_np.astype(np.float32)
+                                    / np.float32(65535.0),
+                                    device=mesh.device),
+                    align_way=cfg.align_way, cap_depth=cfg.cap_depth,
+                    zenith_range=cfg.zenith_range)
+                if writer:
+                    m.save(os.path.join(result_folder, raw + ".aligned.txt"))
+                    m.print()
+                all_metrics.append(m)
+            if profile:
+                log(f"{i}/{n_files} {raw}: latency e2e {ms:.1f} ms")
+        for job in writes:
+            job.result()
+    finally:
+        pool.shutdown(wait=True)
+    mh.barrier("latency-written")
+    if times:
+        log(f"[run_batch_e2e] done: {len(times)} panoramas, "
+            f"time_e2e_avg:{np.mean(times):.1f} (view-parallel)")
     return all_metrics

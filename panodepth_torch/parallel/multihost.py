@@ -26,14 +26,20 @@ computes on one device, its rank's:
   store's barrier and first-writer-wins keys (the preemption drain of
   ``train_cli``); no-ops without :func:`initialize`;
 * :func:`all_reduce`, :func:`all_gather` -- the collectives the mesh and
-  the sharded train step use.
+  the sharded train step use;
+* :func:`mesh_groups` -- the sub-groups of a ``(dp, sp)`` mesh: each sp
+  ring and each dp column (:class:`Group`), over which
+  :func:`all_gather`, :func:`reduce_scatter` (a sum, one part a rank
+  along an axis) and :func:`ring_exchange` (the ring neighbours' edge
+  blocks, ``parallel/spatial.py``'s halos) run.
 
 Each collective takes the tensors where they are: ``gloo`` takes host
 and CUDA tensors alike (it stages a card's tensors through host memory
 itself; every collective used here was checked on the card), ``nccl``
 only the rank's card, to which a host tensor is copied.  Collectives see
 every dtype as bytes where they compute nothing (the broadcast, the
-gather), so u16 and bf16 tensors travel as they are.
+gather, the ring exchange, which is one all-gather), so u16 and bf16
+tensors travel as they are.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import torch.distributed as dist
 TIMEOUT_S = 600  # the store's and the collectives' timeout (JAX's barrier)
 
 _STATE = dict(store=None, rank=0, world=1, device=None, backend=None,
-              barriers={})
+              barriers={}, groups={})
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
@@ -124,7 +130,7 @@ def shutdown() -> None:
         return
     dist.destroy_process_group()
     _STATE.update(store=None, rank=0, world=1, device=None, backend=None,
-                  barriers={})
+                  barriers={}, groups={})
 
 
 def process_shard(items: Sequence, index: int, count: int) -> list:
@@ -172,16 +178,108 @@ def all_reduce(tensors, op: str = "sum"):
     return out
 
 
-def all_gather(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (equal shapes) concatenated on the first axis, in
-    rank order, on ``t``'s device."""
-    if _STATE["world"] == 1:
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """Ranks that run collectives together: their global ``ranks`` in the
+    group's order, this rank's ``index`` among them and the process group
+    (``pg``; None for the whole world)."""
+
+    ranks: Tuple[int, ...]
+    index: int
+    pg: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def world_group() -> Group:
+    """Every rank of :func:`initialize` (this process alone without it)."""
+    return Group(tuple(range(_STATE["world"])), _STATE["rank"])
+
+
+def mesh_groups(dp: int, sp: int) -> Tuple[Group, Group]:
+    """This rank's ``(dp column, sp ring)`` of the ``(dp, sp)`` mesh over
+    the ranks: rank ``r`` sits at ``(r // sp, r % sp)``, as JAX reshapes its
+    devices.  A group that is the whole world runs on the default process
+    group; the others are made by ``dist.new_group``, every rank making
+    every group in the same order (each sp ring, then each dp column), once
+    a mesh shape."""
+    world, r = _STATE["world"], _STATE["rank"]
+    if dp * sp != world:
+        raise ValueError(f"mesh {(dp, sp)} != {world} processes")
+    key = (dp, sp)
+    if key not in _STATE["groups"]:
+        rings = [tuple(i * sp + j for j in range(sp)) for i in range(dp)]
+        columns = [tuple(i * sp + j for i in range(dp)) for j in range(sp)]
+        made = {}
+        for ranks in rings + columns:
+            if 1 < len(ranks) < world and ranks not in made:
+                made[ranks] = dist.new_group(list(ranks))
+        ring, column = rings[r // sp], columns[r % sp]
+        _STATE["groups"][key] = tuple(
+            Group(ranks, ranks.index(r), made.get(ranks))
+            for ranks in (column, ring))
+    return _STATE["groups"][key]
+
+
+def all_gather(t: torch.Tensor, group: Optional[Group] = None,
+               axis: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated along ``axis``, in the
+    group's rank order (default: every rank), on ``t``'s device."""
+    group = group or world_group()
+    if group.size == 1:
         return t
     src = _to_comm(_bytes(t))
-    parts = [torch.empty_like(src) for _ in range(_STATE["world"])]
-    dist.all_gather(parts, src)
-    whole = torch.cat(parts).to(t.device).view(t.dtype)
-    return whole.reshape((-1,) + tuple(t.shape[1:]))
+    parts = [torch.empty_like(src) for _ in range(group.size)]
+    dist.all_gather(parts, src, group=group.pg)
+    return torch.cat([p.to(t.device).view(t.dtype).reshape(t.shape)
+                      for p in parts], axis)
+
+
+def reduce_scatter(t: torch.Tensor, axis: int,
+                   group: Optional[Group] = None) -> torch.Tensor:
+    """The sum of every rank's ``t`` (equal shapes) over the group, cut into
+    ``group.size`` equal parts along ``axis``: this rank's part, on ``t``'s
+    device.  With two ranks each element is ``a + b``, the sum in either
+    order; ``t``'s size along ``axis`` must divide by the group's."""
+    group = group or world_group()
+    n = group.size
+    if t.shape[axis] % n:
+        raise ValueError(f"reduce_scatter: size {t.shape[axis]} along axis "
+                         f"{axis} is not divisible by {n} ranks")
+    if n == 1:
+        return t
+    parts = [_to_comm(p) for p in t.chunk(n, axis)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group.pg)
+    return out.to(t.device)
+
+
+def ring_exchange(left, right, group: Optional[Group] = None):
+    """The ring neighbours' edge blocks: ``left`` and ``right`` are lists of
+    this rank's blocks for its left and right neighbour (the same shapes
+    and dtypes on every rank); returns ``(from_left, from_right)``, the
+    left neighbour's ``right`` blocks and the right neighbour's ``left``
+    ones.  One all-gather of every rank's blocks as bytes; a ring of one
+    rank is its own neighbour on both sides."""
+    group = group or world_group()
+    n, i = group.size, group.index
+    if n == 1:
+        return list(right), list(left)
+    blocks = list(left) + list(right)
+    sizes = [b.numel() * b.element_size() for b in blocks]
+    src = torch.cat([_to_comm(_bytes(b)) for b in blocks])
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group.pg)
+
+    def blocks_of(part):
+        return [p.to(b.device).view(b.dtype).reshape(b.shape)
+                for p, b in zip(part.split(sizes), blocks)]
+
+    k = len(left)
+    return (blocks_of(parts[(i - 1) % n])[k:],
+            blocks_of(parts[(i + 1) % n])[:k])
 
 
 def broadcast_(tensors) -> None:

@@ -250,7 +250,8 @@ def model_mode_scene(tmp_path_factory):
 
 # flags the model mode now runs: each case runs the CLI with it and holds
 # the files to the run without it
-_RUNS = {"--stream": ("--stream", "on"), "--profile": ("--profile",)}
+_RUNS = {"--stream": ("--stream", "on"), "--profile": ("--profile",),
+         "--latency": ("--latency", "--latency-halo", "10")}
 # flags the model mode now runs whose files are held to the JAX CLI's with
 # the same flags (the bf16 bar); the box feed engages on u8 input only,
 # so its case streams the panoramas (the variable set for both CLIs)
@@ -280,17 +281,19 @@ def run_both_clis(head, common, root, extra, monkeypatch, env=None):
     (("--extract-dtype", "pair16"), "--extract-dtype pair16"),
     (("--p99", "approx"), "--p99 approx"),
     (("--persp-int8",), "--persp-int8"),
-    (("--latency",), "--latency"),
+    (("--latency", "--latency-halo", "10"), "--latency"),
     (("--stream", "on"), "--stream"),
     (("--profile",), "--profile"),
     (("--stream", "on"), "PANODEPTH_BASE_FEED=box"),
 ])
 def test_model_mode_refuses_what_is_not_ported(tmp_path, request, capsys,
                                                monkeypatch, extra, needle):
-    """What is not ported is refused by name; ``--stream on`` and
-    ``--profile``, ported since, run and give the files of the run without
-    them within 2 u16 (the CLI bar), the same metrics, and with
-    ``--profile`` the models / fuse split in the end line.
+    """What is not ported is refused by name; ``--stream on``,
+    ``--profile`` and ``--latency --latency-halo 10`` (one rank: the
+    view-parallel graph over this process alone), ported since, run and
+    give the files of the run without them within 2 u16 (the CLI bar), the
+    same metrics, with ``--profile`` the models / fuse split in the end
+    line and with ``--latency`` the view-parallel one.
     ``--persp-int8``, ported since, runs the GN perspective checkpoint's
     int8 graph: the files within ``INT8_CLI_BAR`` of the JAX CLI's with
     the flag, and the bf16 graph of the same checkpoint outside it, the
@@ -378,6 +381,9 @@ def test_model_mode_refuses_what_is_not_ported(tmp_path, request, capsys,
         if needle == "--profile":
             assert "time_Models_avg:n/a" not in out
             assert "time_Models_avg:" in out and "reg+fusion" in out
+        if needle == "--latency":
+            assert "view-parallel latency mode over 1 ranks" in out
+            assert "time_e2e_avg:" in out and "(view-parallel)" in out
         return
     argv = ["0"] + [str(tmp_path)] * 4 + ["--persp-ckpt", PERSP,
                                            "--device", "cpu"]

@@ -169,12 +169,17 @@ def test_dp_e2e_matches_jax_dp_mesh(dp):
 
 
 def test_make_mesh_refuses_sp():
-    with pytest.raises(ValueError, match=r"parallel/spatial\.py"):
+    """An sp axis needs as many processes as the mesh has ranks: one process
+    here, so ``(1, 2)`` is refused as ``(2, 1)`` is (the four-rank run of
+    tests/test_torch_spatial.py builds ``(2, 2)``)."""
+    with pytest.raises(ValueError, match=r"mesh \(1, 2\) != 1 processes"):
         tmesh.make_mesh((1, 2), device="cpu")
     with pytest.raises(ValueError, match="processes"):
         tmesh.make_mesh((2, 1), device="cpu")  # one process here
     mesh = tmesh.make_mesh(device="cpu")
     assert (mesh.dp, mesh.sp, mesh.rank, mesh.backend) == (1, 1, 0, None)
+    assert (mesh.dp_index, mesh.sp_index) == (0, 0)
+    assert mesh.sp_group.ranks == mesh.dp_group.ranks == (0,)
 
 
 def test_batch_not_divisible_by_dp_refused():

@@ -247,9 +247,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, request, extra, needle):
         tcli.main(argv + list(extra))
     msg = str(e.value.code)
     assert needle in msg and ("not ported" in msg or "model mode only" in msg)
-    if needle == "--persp-int8":
-        # JAX's message (panodepth/cli.py:178-180)
-        assert msg.endswith("--persp-int8 applies to the on-device model "
+    if needle in ("--persp-int8", "--latency"):
+        # JAX's model-mode message (panodepth/cli.py:178-180); the file
+        # mode has no view-parallel graph
+        assert msg.endswith(f"{needle} applies to the on-device model "
                             "mode only; pass --persp-ckpt")
 
 

@@ -107,7 +107,8 @@ def zoo_pair(root, pano_width):
     return tuple(paths)
 
 
-# --- two-process runs (tests/test_torch_parallel.py, test_torch_multihost.py)
+# --- multi-process runs (tests/test_torch_parallel.py, test_torch_multihost.py,
+# test_torch_spatial.py, test_torch_latency.py)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PAIR_TIMEOUT = 120  # seconds a spawned pair may take
@@ -137,13 +138,13 @@ def _port_taken(text: str) -> bool:
     return "address already in use" in text.lower()
 
 
-def run_pair(argv_of, timeout=PAIR_TIMEOUT):
-    """Rank 0 and rank 1 of ``argv_of(port, rank)`` together, each killed if
-    still running at the end; a port taken in between is picked again once.
-    Returns both ranks' outputs; asserts both exited 0."""
+def run_pair(argv_of, timeout=PAIR_TIMEOUT, nproc=2):
+    """Ranks 0 .. ``nproc - 1`` of ``argv_of(port, rank)`` together, each
+    killed if still running at the end; a port taken in between is picked
+    again once.  Returns every rank's output; asserts each exited 0."""
     for attempt in range(2):
         port = free_port()
-        procs = [spawn(argv_of(port, r)) for r in (0, 1)]
+        procs = [spawn(argv_of(port, r)) for r in range(nproc)]
         outs = []
         try:
             for p in procs:

@@ -109,11 +109,14 @@ Phases, each printing its elapsed seconds:
              distinct shape (with its launch plan) and the 39 as a set
              timed (kernel, plain, unfold + _int_mm, the bf16 ``F.conv2d``)
              with the bound; the quantization kernel's codes and scales
-             bit-equal to the plain pass's on the 39 inputs, each shape
-             and the set timed (kernel, plain) with the bound; the
+             bit-equal to the plain pass's on the 39 inputs and on edge
+             inputs (N = 1, C = 3 and 40, 7x11 pixels, a 4-byte offset,
+             zeros, ties, a NaN in one image of three, a 512-view's input
+             on the L2 path), each shape (with its plan) and the set
+             timed (kernel, plain) with the bound; the
              net's output within JAX's 0.12 relative RMS of the float
              net's; the int8 e2e graph beside FastPanoNet (the checks
-             above, kernel routes equal to plain routes, 39 qconv and 78
+             above, kernel routes equal to plain routes, 39 qconv and 39
              quantize launches a forward), its u16 distance from the bf16 GN
              graph's and both timed in turns.  Then the model-mode CLI with
              the BiFuse baseline and the GN perspective net, with resume,
@@ -134,7 +137,7 @@ Phases, each printing its elapsed seconds:
              nodes (3 ``jacobi``; 29 ``group_norm`` a FastPanoNet forward),
              the launches of its first call and of a replay under the
              profiler (26 Jacobi launches a batch, one GroupNorm launch a
-             norm call, 39 qconv and 78 quantize launches an int8
+             norm call, 39 qconv and 39 quantize launches an int8
              forward), its outputs
              bit-equal to the in-process ``compiled_merge_batched`` or
              ``e2e.full`` graph; the merge and e2e ones again after a load
@@ -1900,7 +1903,7 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
         busy_ms, events = _device_profile(lambda: full(rgbs))
         gn_seen = sum(n for _, n, key in events if "gn_cluster" in key)
         q_seen = sum(n for _, n, key in events if "qconv_kernel" in key)
-        qz_seen = sum(n for _, n, key in events if "quantize_" in key)
+        qz_seen = sum(n for _, n, key in events if "quantize_kernel" in key)
         if not (replay_count and busy_ms > 0) or (
                 gn_seen, q_seen, qz_seen) == want_seen:
             break
@@ -1908,7 +1911,7 @@ def _family_e2e(name, persp, base, rgbs, replay_count=True,
               f"{(gn_seen, q_seen, qz_seen)} launches, expected {want_seen}")
     gn_ms = sum(ms for ms, _, key in events if "gn_cluster" in key)
     q_ms = sum(ms for ms, _, key in events if "qconv_kernel" in key)
-    qz_ms = sum(ms for ms, _, key in events if "quantize_" in key)
+    qz_ms = sum(ms for ms, _, key in events if "quantize_kernel" in key)
     if replay_count and busy_ms > 0 and (gn_seen, q_seen,
                                          qz_seen) != want_seen:
         raise AssertionError(f"families {name}: the replay ran {gn_seen} "
@@ -2038,17 +2041,116 @@ def _qconv_bf16_conv(m, x):
     return lambda: F.conv2d(xp, w, stride=m.strides)
 
 
+# the quantization kernel's edge inputs (name, (N, C, H, W), dtype): N = 1
+# with C = 3, C = 40, 7x11 pixels (rows TMA refuses), a view 4 bytes off
+# its alignment, a NaN in one image of three, a 512-view's decoder input
+# (the L2 path); every input of three images or more has an all-zero
+# image and one on exact rounding ties (_quantize_edge_input)
+QUANTIZE_EDGES = (
+    ("n1_c3", (1, 3, 256, 256), "float32"),
+    ("c40", (3, 40, 64, 64), "bfloat16"),
+    ("px7x11_bf16", (3, 64, 7, 11), "bfloat16"),
+    ("px7x11_f32", (3, 64, 7, 11), "float32"),
+    ("offset4", (3, 128, 32, 32), "float32"),
+    ("nan", (3, 128, 16, 16), "float32"),
+    ("l2_path", (2, 64, 512, 512), "bfloat16"))
+
+
+def _quantize_edge_input(name, shape, dtype):
+    """An edge input made with numpy from SEED: images at scales 1e-3 ..
+    1e3; with three images or more, image 1 all zero (sx = 1e-8 / 127) and
+    image 2 on exact ties ((k + 0.5) / 8 under amax 127 / 8, -0.0 among
+    them); ``nan``: one NaN in image 1; ``offset4``: a view 4 bytes into
+    its storage."""
+    n, c, h, w = shape
+    rng = np.random.RandomState(SEED + c + h)
+    x = rng.normal(0, 1, shape) * 10.0 ** rng.uniform(-3, 3, (n, 1, 1, 1))
+    if n > 2:
+        x[1] = 0.0
+        ties = (rng.randint(-127, 127, (c, h, w)) + 0.5) / 8
+        ties.flat[0] = 127 / 8
+        ties.flat[1::5] = -0.0
+        x[2] = ties
+    if name == "nan":
+        x[1, c // 2, 0, 1] = np.nan
+    t = torch.tensor(x.astype(np.float32), device="cuda").to(
+        getattr(torch, dtype))
+    if name == "offset4":
+        step = 4 // t.element_size()
+        flat = torch.zeros(t.numel() + 8, dtype=t.dtype, device="cuda")
+        t = flat[step:step + t.numel()].view(t.shape).copy_(t)
+    return t
+
+
+def _quantize_plan_of(x):
+    from panodepth_torch.kernels import qconv as kq
+
+    return kq.quantize_plan(*x.shape[:2], x[0, 0].numel(), x.dtype,
+                            x.data_ptr() % 16 == 0, kq._sms(x.device))
+
+
+def _plan_text(p):
+    return (f"plan {'TMA' if p.tma else 'plain loads'}, tiles {p.tc} ch x "
+            f"{p.nb} x {p.bw} px, {p.tiles} an image, k {p.k}, {p.ipw} "
+            f"images a wave x {p.spi} blocks, {p.waves} waves, "
+            f"{p.blocks_per_sm} blocks an SM, stage {p.stage_bytes} B")
+
+
+def _quantize_edges():
+    """The kernel on QUANTIZE_EDGES: one launch each; codes and scales
+    bit-equal to the plain pass's, but for an image holding a NaN: its
+    scale NaN as the plain pass's, its real channels' codes -127
+    (fmaxf(NaN, -127); the plain pass casts NaN), its padding 0."""
+    from panodepth_torch.kernels import qconv as kq
+
+    out = []
+    for name, shape, dtype in QUANTIZE_EDGES:
+        x = _quantize_edge_input(name, shape, dtype)
+        plan = _quantize_plan_of(x)
+        before = kq.QUANTIZE_LAUNCHES
+        q, sx = kq.cuda_quantize_nhwc(x)
+        torch.cuda.synchronize()
+        launches = kq.QUANTIZE_LAUNCHES - before
+        want_q, want_sx = kq.quantize_nhwc_plain(x)
+        bad = torch.isnan(x.float()).flatten(1).any(1)
+        ok = ~bad
+        c = shape[1]
+        same = (q.shape == want_q.shape
+                and torch.equal(torch.isnan(sx), bad)
+                and torch.equal(sx[ok].view(torch.int32),
+                                want_sx[ok].view(torch.int32))
+                and torch.equal(q[ok], want_q[ok])
+                and bool((q[bad][..., :c] == -127).all())
+                and not bool(q[bad][..., c:].any()))
+        print(f"int8 quantize edge {name} {shape} {dtype}"
+              f"{' at a 4-byte offset' if x.data_ptr() % 16 else ''}: "
+              f"{_plan_text(plan)}; {launches} launch; codes and scales "
+              f"bit-equal to the plain pass's"
+              + (f" but image(s) {bad.nonzero().flatten().tolist()} with a "
+                 f"NaN: scale NaN, codes -127" if bool(bad.any()) else "")
+              + (": OK" if same else ": DIFFER"))
+        if not same or launches != 1 or plan.l2 != (name == "l2_path"):
+            raise AssertionError(f"quantize edge {name}: kernel and plain "
+                                 f"differ, {launches} launches, or the L2 "
+                                 f"path {plan.l2}")
+        out.append(dict(name=name, shape=list(shape), dtype=dtype,
+                        tma=plan.tma, l2=plan.l2, launches=launches))
+    return out
+
+
 def _quantize_hold(calls):
     """The activation's quantization ahead of each int8 conv of one
     forward (``calls``: (QConv, input) pairs): the kernel's codes and
-    scales bit-equal to the plain twin's on all of them; each distinct
-    input shape and the set timed from CUDA graphs (kernel, plain pass)
-    beside the bound (bytes: each input read once, the codes and scales
-    written)."""
+    scales bit-equal to the plain twin's on all of them, one launch each;
+    each distinct input shape (with its plan) and the set timed from CUDA
+    graphs (kernel, plain pass) beside the bound (bytes: each input read
+    once, the codes and scales written); then the edge inputs
+    (:func:`_quantize_edges`)."""
     from panodepth_torch.kernels import qconv as kq
 
     shapes, rows, kern, plain = {}, [], [], []
     total_bytes, max_abs = 0, 0
+    before = kq.QUANTIZE_LAUNCHES
     for _, x in calls:
         q, sx = kq.cuda_quantize_nhwc(x)
         want_q, want_sx = kq.quantize_nhwc_plain(x)
@@ -2073,29 +2175,37 @@ def _quantize_hold(calls):
         shapes[key] = shapes.get(key, 0) + 1
         if shapes[key] == 1:
             rows.append((key, len(kern) - 1, nbytes))
+    launches = kq.QUANTIZE_LAUNCHES - before
+    if launches != len(calls) * kq.QUANTIZE_KERNELS:
+        raise AssertionError(f"quantize: {launches} launches for "
+                             f"{len(calls)} calls")
     table = []
     for key, i, nbytes in rows:
         t = dict(kernel=_graph_ms(kern[i], 5, 3),
                  plain=_graph_ms(plain[i], 5, 3))
         bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        plan = _quantize_plan_of(calls[i][1])
         table.append(dict(shape=key, calls=shapes[key], bytes=nbytes,
                           bound_ms=bound, kernel_ms=t["kernel"],
-                          plain_ms=t["plain"]))
+                          plain_ms=t["plain"],
+                          plan=[plan.tc, plan.bw, plan.nb, plan.k, plan.ipw,
+                                plan.spi, plan.blocks_per_sm]))
         print(f"int8 quantize (N, C, H, W, dtype) {key} x{shapes[key]}: "
               f"kernel {t['kernel']!r} ms, plain {t['plain']!r} ms, bound "
-              f"{bound!r} ms ({nbytes / 1e6:.3f} MB)")
+              f"{bound!r} ms ({nbytes / 1e6:.3f} MB); {_plan_text(plan)}")
     per_set = dict(kernel=_graph_ms(lambda: [f() for f in kern], reps=1),
                    plain=_graph_ms(lambda: [f() for f in plain], reps=1))
     bound = total_bytes / PEAK_BYTES_PER_S * 1e3
     print(f"int8 quantize: {len(calls)} calls a forward over {len(rows)} "
-          f"shapes, codes and scales bit-equal to the plain pass's; the set "
-          f"({total_bytes / 1e6:.1f} MB): kernel {per_set['kernel']!r} ms, "
-          f"plain {per_set['plain']!r} ms from CUDA graphs, bound "
-          f"{bound!r} ms (bytes)")
+          f"shapes in {launches} launches, codes and scales bit-equal to "
+          f"the plain pass's; the set ({total_bytes / 1e6:.1f} MB): kernel "
+          f"{per_set['kernel']!r} ms, plain {per_set['plain']!r} ms from "
+          f"CUDA graphs, bound {bound!r} ms (bytes)")
+    edges = _quantize_edges()
     return dict(calls=len(calls), shapes=table, max_abs_err=float(max_abs),
                 ms=per_set["kernel"], plain_ms=per_set["plain"],
                 bound_ms=bound, bound_by="bytes", bytes=total_bytes,
-                launches_per_call=kq.QUANTIZE_KERNELS)
+                launches_per_call=kq.QUANTIZE_KERNELS, edges=edges)
 
 
 def _qconv_hold(net, feed):
@@ -3054,11 +3164,11 @@ def _exported(out, label, path):
 
 
 # each kernel's wrapper module, its launch counter there and its name in
-# a profile (the quantization's two kernels both start "quantize_")
+# a profile
 _COUNTED = dict(jacobi=("jacobi", "LAUNCHES", "jacobi_tile"),
                 group_norm=("groupnorm", "LAUNCHES", "gn_cluster"),
                 qconv=("qconv", "LAUNCHES", "qconv_kernel"),
-                quantize=("qconv", "QUANTIZE_LAUNCHES", "quantize_"))
+                quantize=("qconv", "QUANTIZE_LAUNCHES", "quantize_kernel"))
 
 
 def _launch_counters(keys):
@@ -5128,7 +5238,7 @@ def main():
                 "quantize"],
             evaluate_int8=trained["evaluate"]["gn_int8"][
                 "quantize_launches"]),
-        shapes=quantized["shapes"])]
+        shapes=quantized["shapes"], edges=quantized["edges"])]
     print(f"merge warm ms per panorama: {warm_ms!r}; merge library: "
           f"{library!r}; e2e warm ms per "
           f"panorama: {e2e['warm']!r}, device busy {e2e['busy_ms']!r} of "

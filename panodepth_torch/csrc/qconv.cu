@@ -79,11 +79,11 @@
 // 64-byte K tiles with deeper rings were all exact and slower at these
 // shapes; PERF.md has their numbers.)
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
+
+#include "tma.cuh"  // mbarriers, TMA loads, cuTensorMapEncodeTiled
 
 namespace {
 
@@ -103,10 +103,6 @@ struct Conv {
   int ktiles;            // ceil(ktaps / BK)
   int stages, splits;    // the plan's ring depth and split of K
 };
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared through L1; `bytes` 0 zero-fills without reading
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
@@ -141,49 +137,6 @@ __device__ __forceinline__ void cp_async_wait_dyn(int n) {
 // (wgmma reads its operands through it)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// wait for the barrier's phase `parity` to complete; a load that never
-// lands (a fault) traps after ~2^34 cycles instead of hanging the card
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > (1LL << 34)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// one 2-D TMA load of the box at (x = K byte, y = output channel)
-__device__ __forceinline__ void tma_load_2d(unsigned dst,
-                                            const CUtensorMap* map,
-                                            unsigned bar, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
 }
 
 // the wgmma descriptor of a K-major tile with 128-byte swizzle: rows of 128
@@ -556,25 +509,6 @@ __global__ void __launch_bounds__(THREADS, 2)
   __syncthreads();  // every warpgroup's wgmma has read the ring
   store_tile<BN>(acc, reinterpret_cast<int*>(smem), p, bm, bn, sx, scale,
                  bias, y, acc_out, tid);
-}
-
-// cuTensorMapEncodeTiled, from the driver the process has loaded (no link
-// against libcuda, no toolkit-specific entry-point API)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
 }
 
 template <int BN, typename Tout>

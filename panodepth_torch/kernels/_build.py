@@ -1,6 +1,7 @@
 """Build the port's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface, so it is
+Each ``csrc/<name>.cu`` (with the headers ``csrc/*.cuh`` it includes)
+exposes a plain ``extern "C"`` interface, so it is
 compiled by ``nvcc`` alone into a shared library (seconds) instead of
 through ``torch.utils.cpp_extension`` (whose sources include PyTorch's
 headers and take minutes) and loaded with :class:`ctypes.CDLL`.  Host
@@ -75,7 +76,11 @@ def _flags(name: str):
 
 
 def library_path(name: str) -> Path:
+    """The library built from the current source, its headers
+    (``csrc/*.cuh``, for a CUDA source) and the flags."""
     src = source_path(name).read_bytes()
+    if name not in HOST_SOURCES:
+        src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -11,8 +11,10 @@ PyTorch conv computes it (``F.conv2d`` takes no int8), so the port has two
 kernels of its own.  Neither is the port of a TPU kernel: no Pallas kernel
 of the JAX package computes these.
 
-``cuda_quantize_nhwc`` launches ``csrc/quantize.cu`` (two launches: the
-per-image absmax, then the codes through a shared-memory transpose);
+``cuda_quantize_nhwc`` launches ``csrc/quantize.cu`` (one launch of a
+persistent grid that reads each input byte once: an image's slices stay
+in shared memory from their absmax to their codes, the blocks of an image
+meeting on its absmax word; a plan per shape from :func:`quantize_plan`);
 ``quantize_nhwc_plain`` is the same function in plain PyTorch,
 :func:`to_nhwc` of :func:`quantize_activation`.  Both take an NCHW bf16 or
 f32 activation and return its int8 codes NHWC with the channels
@@ -55,6 +57,8 @@ has a backward.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -68,7 +72,7 @@ OPS = __name__.split(".")[0]
 # the quantization QUANTIZE_KERNELS a call
 LAUNCHES = 0
 QUANTIZE_LAUNCHES = 0
-QUANTIZE_KERNELS = 2  # the absmax pass, then the codes
+QUANTIZE_KERNELS = 1
 
 CIN_ALIGN = 16  # the input's channels padded to this (a 16-byte copy)
 K_ALIGN = 64    # the weights' K padded to this
@@ -83,8 +87,21 @@ TILE_N = (32, 64, 128)  # output channels a block: wgmma's N
 STAGES = {32: 4, 64: 4, 128: 3}
 MIN_STAGES, MAX_STAGES = 3, 8
 SMS = 132            # streaming multiprocessors of an H100 SXM
-SMEM_MAX = 232448 - 256  # dynamic shared memory a block may take
+SMEM_BLOCK = 232448      # shared memory a block may take
+SMEM_MAX = SMEM_BLOCK - 256  # dynamic shared memory a qconv block takes
 MIN_SPLIT_KTILES = 3     # K tiles a split keeps at the least
+
+# the quantization kernel's geometry (csrc/quantize.cu) and the card's
+# the blocks an SM a plan may take (at most __launch_bounds__'), in the
+# order a plan prefers them at equal waves (scripts/torch_kernel_ab.py
+# --kernels quantize --sweep: fewer, larger blocks were faster)
+Q_BLOCKS_PER_SM = (2, 1, 4)
+SMEM_SM = 233472         # shared memory of an SM
+SMEM_RESERVED = 1024     # the runtime's own shared memory a block
+Q_SMEM_STATIC = 512      # the kernel's static shared memory, at the most
+Q_ALIGN = 128            # a stage's and a box's alignment in shared memory
+Q_STAGES = 3             # shared-memory stages a block
+MAX_BOX = 256            # TMA's largest box side
 
 
 def _round_up(v: int, m: int) -> int:
@@ -229,6 +246,218 @@ def qconv_plan(n: int, h: int, w: int, cinp: int, cout: int, kh: int,
     return plan
 
 
+def smem_max(blocks_per_sm: int) -> int:
+    """The most dynamic shared memory a quantization block may take at
+    ``blocks_per_sm`` blocks an SM: the SM's, less the static and the
+    runtime's shared memory of each block, within a block's limit."""
+    return min(SMEM_SM // blocks_per_sm - SMEM_RESERVED,
+               SMEM_BLOCK) - Q_SMEM_STATIC
+
+
+@dataclass(frozen=True)
+class QuantizePlan:
+    """One launch of ``csrc/quantize.cu``.  An image (``c`` channels by
+    ``pixels``) is cut into tiles of ``tc`` channels (``c`` itself, or a
+    multiple of 16 below it) by ``nb`` boxes of ``bw`` pixels; block ``b``
+    of the grid (``ipw`` images a wave, ``spi`` blocks an image) takes
+    slice ``b % spi`` (``k`` tiles) of image ``wave * ipw + b // spi`` in
+    each wave.  ``k > 1`` is the L2 path: the slice's tiles stream through
+    the stages twice, for the absmax and for the codes.  ``tma``: the
+    tiles arrive by TMA (16-byte aligned rows), else by plain loads
+    (``nb`` 1)."""
+
+    n: int
+    c: int
+    pixels: int
+    esize: int          # bytes an element: 2 (bf16) or 4 (f32)
+    tma: bool
+    tc: int
+    bw: int
+    nb: int
+    k: int
+    ipw: int
+    blocks_per_sm: int
+
+    @property
+    def cinp(self) -> int:
+        return _round_up(self.c, CIN_ALIGN)
+
+    @property
+    def width(self) -> int:
+        """A tile's pixels."""
+        return self.nb * self.bw
+
+    @property
+    def tiles_c(self) -> int:
+        return -(-self.c // self.tc)
+
+    @property
+    def tiles_p(self) -> int:
+        return -(-self.pixels // self.width)
+
+    @property
+    def tiles(self) -> int:
+        """Tiles an image."""
+        return self.tiles_c * self.tiles_p
+
+    @property
+    def spi(self) -> int:
+        """Slices (blocks) an image."""
+        return -(-self.tiles // self.k)
+
+    @property
+    def waves(self) -> int:
+        return -(-self.n // self.ipw)
+
+    @property
+    def grid(self) -> int:
+        return self.ipw * self.spi
+
+    @property
+    def l2(self) -> bool:
+        return self.k > 1
+
+    @property
+    def box_bytes(self) -> int:
+        return _round_up(self.tc * self.bw * self.esize, Q_ALIGN)
+
+    @property
+    def stage_bytes(self) -> int:
+        return self.nb * self.box_bytes
+
+    @property
+    def tcp(self) -> int:
+        """The channels a tile's codes cover: ``tc``, or all of ``cinp``."""
+        return self.cinp if self.tc == self.c else self.tc
+
+    @property
+    def code_stride(self) -> int:
+        """Bytes a pixel in the codes' tile: an odd number of 16-byte
+        pieces, so that 16-byte stores of neighbouring pixels meet no bank
+        conflict."""
+        return self.tcp if self.tcp // 16 % 2 else self.tcp + 16
+
+    @property
+    def code_px(self) -> int:
+        """Pixels a round of the codes' tile holds: the tile's, or the most
+        (a power of two, 32 at the least) that the shared memory left
+        beside the stages holds; 0 where not even 32 fit."""
+        room = (smem_max(self.blocks_per_sm) - Q_ALIGN
+                - Q_STAGES * self.stage_bytes) // self.code_stride
+        if room >= self.width:
+            return self.width
+        return 1 << (room.bit_length() - 1) if room >= 32 else 0
+
+    @property
+    def code_bytes(self) -> int:
+        return _round_up(self.code_px * self.code_stride, Q_ALIGN)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of the launch: the stages, the codes' tile
+        and the alignment."""
+        return Q_STAGES * self.stage_bytes + self.code_bytes + Q_ALIGN
+
+    def tile_origin(self, tile: int) -> Tuple[int, int]:
+        """(first channel, first pixel) of tile ``tile`` of an image."""
+        tc_i, tp_i = divmod(tile, self.tiles_p)
+        return tc_i * self.tc, tp_i * self.width
+
+    def slice_tiles(self, block: int) -> range:
+        """The tiles (of its image) that block ``block`` takes a wave."""
+        j = block % self.spi
+        return range(j * self.k, min(self.tiles, (j + 1) * self.k))
+
+    def image(self, wave: int, block: int) -> Optional[int]:
+        """The image of block ``block`` in wave ``wave`` (None: idle)."""
+        img = wave * self.ipw + block // self.spi
+        return img if img < self.n else None
+
+
+def _geometries(c: int, pixels: int, esize: int, tma: bool):
+    """The tile shapes (tc, bw, nb) a plan may take: ``tc`` the channels or
+    a power-of-two multiple of 32 below them (at most ``MAX_BOX`` under
+    TMA: a pixel's codes in runs of whole 32-byte sectors); the pixels a
+    power of two (times the vector) up to the row, the row itself, or
+    (TMA) whole boxes of ``MAX_BOX``."""
+    vec = 16 // esize
+    row = _round_up(pixels, vec)
+    tcs = [32 << i for i in range(4) if 32 << i < c]
+    if c <= MAX_BOX or not tma:
+        tcs.append(c)
+    widths = {(vec << i, 1) for i in range(32) if vec << i < row}
+    if not tma or row <= MAX_BOX:
+        widths.add((row, 1))
+    if tma:
+        widths = {(w, nb) for w, nb in widths if w <= MAX_BOX}
+        if row > MAX_BOX:
+            widths |= {(MAX_BOX, nb) for nb in range(1, -(-row // MAX_BOX) + 1)}
+    return [(tc, bw, nb) for tc in tcs for bw, nb in sorted(widths)]
+
+
+@functools.lru_cache(maxsize=None)
+def quantize_plan(n: int, c: int, pixels: int, dtype=torch.float32,
+                  aligned: bool = True, sms: int = SMS,
+                  blocks_per_sm: Optional[int] = None,
+                  images_per_wave: Optional[int] = None) -> QuantizePlan:
+    """The launch plan of one quantization shape (``aligned``: the input is
+    16-byte aligned; ``sms`` the card's SMs).
+
+    At each candidate number of blocks an SM (``Q_BLOCKS_PER_SM``, or
+    ``blocks_per_sm``) the grid has ``sms`` times as many blocks, each with
+    ``Q_STAGES`` stages and the codes' tile in at most :func:`smem_max`
+    bytes.  An image fits (is resident) when some tile shape within that
+    needs no more tiles than
+    the grid has blocks; then a wave takes as many images as fit, the waves
+    balanced (or ``images_per_wave``), and the tile is the smallest whose
+    count fits the blocks an image (of equal ones, the widest rows: TMA
+    reads long rows best).  An image that does not fit takes the
+    L2 path, one a wave, with the largest tile and ``k`` tiles a block.
+    Of the candidates, the fewest waves win, then the blocks an SM first
+    in ``Q_BLOCKS_PER_SM``."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    if esize not in (2, 4):
+        raise ValueError(f"quantize_plan: bf16 or f32, got {dtype}")
+    tma = aligned and pixels * esize % 16 == 0
+    geoms = _geometries(c, pixels, esize, tma)
+    best = None
+    for bps in ((blocks_per_sm,) if blocks_per_sm else Q_BLOCKS_PER_SM):
+        blocks = sms * bps
+        plans = [QuantizePlan(n, c, pixels, esize, tma, tc, bw, nb, 1, 1,
+                              bps) for tc, bw, nb in geoms]
+        plans = [p for p in plans
+                 if p.code_px and p.smem_bytes <= smem_max(bps)]
+        if not plans:
+            continue
+        least = min(p.tiles for p in plans)
+        if least <= blocks:  # resident
+            ipw = images_per_wave or -(-n // -(-n // (blocks // least)))
+            ipw = min(ipw, n)
+            per_image = blocks // ipw
+            fits = [p for p in plans if p.tiles <= per_image]
+            if not fits:
+                continue
+            p = min(fits, key=lambda p: (p.stage_bytes, p.tiles, p.nb,
+                                         -p.bw))
+            plan = dataclasses.replace(p, ipw=ipw)
+        else:  # the L2 path: the fewest tiles, k a block
+            ipw = min(images_per_wave or 1, n)
+            p = min(plans, key=lambda p: (p.tiles, -p.stage_bytes, p.nb,
+                                          -p.bw))
+            k = -(-p.tiles // (blocks // ipw))
+            plan = dataclasses.replace(p, k=k, ipw=ipw)
+        if plan.grid > blocks:
+            continue
+        key = (plan.waves, Q_BLOCKS_PER_SM.index(bps))
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"quantize_plan: no plan for {n}x{c}x{pixels} at "
+                         f"{blocks_per_sm} blocks an SM and "
+                         f"{images_per_wave} images a wave")
+    return best[1]
+
+
 def quantize_nhwc_plain(x: torch.Tensor):
     """The quantization in plain PyTorch: :func:`to_nhwc` of
     :func:`quantize_activation`.  Returns (int8 NHWC codes with the
@@ -279,6 +508,15 @@ def set_qconv_argtypes(lib):
     lib.panodepth_qconv.restype = ctypes.c_int
 
 
+def set_quantize_argtypes(lib):
+    """Declare ``panodepth_quantize_nhwc``'s C signature on a loaded library
+    (also ``scripts/quantize_probe.py``'s rebuilt forms of the source)."""
+    lib.panodepth_quantize_nhwc.argtypes = [
+        ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 11 + [ctypes.c_void_p]
+    lib.panodepth_quantize_nhwc.restype = ctypes.c_int
+
+
 def _library(name: str = "qconv"):
     """The built library ``csrc/<name>.cu`` (``qconv`` or ``quantize``),
     its argument types set (built at first use)."""
@@ -289,10 +527,7 @@ def _library(name: str = "qconv"):
         if name == "qconv":
             set_qconv_argtypes(lib)
         else:
-            lib.panodepth_quantize_nhwc.argtypes = [
-                ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
-                ctypes.c_int] * 4 + [ctypes.c_void_p]
-            lib.panodepth_quantize_nhwc.restype = ctypes.c_int
+            set_quantize_argtypes(lib)
         err_string = getattr(lib, f"panodepth_{name}_error_string")
         err_string.argtypes = [ctypes.c_int]
         err_string.restype = ctypes.c_char_p
@@ -471,20 +706,77 @@ def _check_activation(x):
                          f"{tuple(x.shape)}")
 
 
-def _quantize_launch(x):
-    """Two launches on a checked, contiguous ``x``: (codes, scales)."""
+_SMS = {}
+
+
+def _sms(device) -> int:
+    """The SMs of ``device`` (the grid a plan may fill)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index) \
+            .multi_processor_count
+    return _SMS[index]
+
+
+Q_WORDS = 4        # an image's words: amax bits, arrivals, departures, pad
+_WORDS = {}        # device index: (the image words, the stream last using them)
+_OLD_WORDS = []    # outgrown buffers, kept: a captured graph may point at one
+
+
+def _image_words(device, n: int) -> torch.Tensor:
+    """The image words a call of ``n`` images takes on ``device``: one
+    buffer a device, zeroed once (outside any CUDA graph's capture) and
+    left zero by every call (the kernel's last block of an image clears
+    its words), grown for a call with more images.  An eager call on
+    another stream than the last call's waits for that stream first, so
+    two calls never hold the words at once; a captured call keeps the
+    buffer, and its replays run on the stream of the calls around them."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index)
+    capturing = torch.cuda.is_current_stream_capturing()
+    words, last = _WORDS.get(index, (None, None))
+    if words is None or words.numel() < Q_WORDS * n:
+        if capturing:
+            raise RuntimeError("cuda_quantize_nhwc: call it once outside "
+                               "the CUDA graph's capture first (its "
+                               "scratch is made and zeroed there)")
+        if words is not None:
+            torch.cuda.synchronize(index)
+            _OLD_WORDS.append(words)
+        words = torch.zeros(Q_WORDS * max(n, 1024), dtype=torch.int32,
+                            device=index)
+        torch.cuda.synchronize(index)
+    elif last is not None and last != stream and not capturing:
+        stream.wait_stream(last)
+    _WORDS[index] = (words, stream)
+    return words
+
+
+def _quantize_launch(x, plan: Optional[QuantizePlan] = None, lib=None):
+    """One launch on a checked, contiguous ``x`` with ``plan``
+    (``quantize_plan``'s by default) of ``lib`` (the built
+    ``csrc/quantize.cu`` by default): (codes, scales)."""
     global QUANTIZE_LAUNCHES
     n, c, h, w = x.shape
-    cinp = _round_up(c, CIN_ALIGN)
-    lib = _library("quantize")
-    q = torch.empty((n, h, w, cinp), dtype=torch.int8, device=x.device)
+    aligned = x.data_ptr() % 16 == 0
+    if plan is None:
+        plan = quantize_plan(n, c, h * w, x.dtype, aligned, _sms(x.device))
+    elif (plan.n, plan.c, plan.pixels, plan.esize) != (
+            n, c, h * w, x.element_size()) or (plan.tma and not aligned):
+        raise ValueError(f"cuda_quantize_nhwc: {plan} is not this input's "
+                         f"plan")
+    lib = lib or _library("quantize")
+    q = torch.empty((n, h, w, plan.cinp), dtype=torch.int8, device=x.device)
     sx = torch.empty((n,), dtype=torch.float32, device=x.device)
-    # the absmax pass's scratch words an image, as the source sizes them
-    parts = torch.empty((n, lib.panodepth_quantize_parts()),
-                        dtype=torch.int32, device=x.device)
+    words = _image_words(x.device, n)
     err = lib.panodepth_quantize_nhwc(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), parts.data_ptr(),
-        sx.data_ptr(), q.data_ptr(), n, c, h * w, cinp,
+        x.data_ptr(), int(x.dtype == torch.bfloat16), words.data_ptr(),
+        sx.data_ptr(), q.data_ptr(), n, c, h * w, int(plan.tma), plan.tc,
+        plan.bw, plan.nb, plan.k, plan.ipw, plan.code_px, plan.smem_bytes,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on("quantize", err)
     QUANTIZE_LAUNCHES += QUANTIZE_KERNELS
@@ -492,7 +784,7 @@ def _quantize_launch(x):
 
 
 def cuda_quantize_nhwc(x: torch.Tensor):
-    """The CUDA kernels ``csrc/quantize.cu`` (two launches a call) on the
+    """The CUDA kernel ``csrc/quantize.cu`` (one launch a call) on the
     NCHW bf16 or f32 activation ``x``: (int8 NHWC codes with the channels
     padded to a multiple of 16, f32 (N,) scales), as
     :func:`quantize_nhwc_plain`.  Runs on the current stream and does not
@@ -501,10 +793,27 @@ def cuda_quantize_nhwc(x: torch.Tensor):
     return _quantize_op(x)
 
 
+def run_quantize_plan(x: torch.Tensor, plan: QuantizePlan):
+    """:func:`cuda_quantize_nhwc` with a given launch plan (other tiles,
+    blocks an SM or images a wave than :func:`quantize_plan`'s), outside
+    the operator: the card tests' and the A/B's way to reach every form of
+    the kernel."""
+    _check_activation(x)
+    x = x.contiguous()
+    if (plan.blocks_per_sm not in Q_BLOCKS_PER_SM
+            or plan.grid > _sms(x.device) * plan.blocks_per_sm
+            or not plan.code_px
+            or plan.smem_bytes > smem_max(plan.blocks_per_sm)
+            or not 1 <= plan.ipw <= plan.n):
+        raise ValueError(f"cuda_quantize_nhwc: the kernel does not take "
+                         f"{plan}")
+    return _quantize_launch(x, plan)
+
+
 @torch.library.custom_op(f"{OPS}::quantize_nhwc", mutates_args=(),
                          device_types="cuda")
 def _quantize_op(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The operator's CUDA implementation: two launches (a checked
+    """The operator's CUDA implementation: one launch (a checked
     argument, made contiguous here)."""
     return _quantize_launch(x.contiguous())
 

@@ -74,7 +74,8 @@ def build_forms():
         cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
         cu.write_text(text)
         procs[form] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC_DIR), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for form, (proc, so) in procs.items():

@@ -23,18 +23,19 @@ depends on no earlier C interface.  It times, in turns old, new, new, old:
   zoo GN perspective net's int8 graph on the 15 views of a panorama (the
   inputs of ``chip_smoke.py``'s int8 hold): each distinct shape and the 39
   as a set, each from a CUDA graph between CUDA events, the outputs of
-  both forms bit-equal; and the activation's quantization ahead of those
-  39 convs, the plain pass (``quantize_nhwc_plain``, the parent's
-  ``quantize_activation`` + ``to_nhwc``) against the kernel
-  (``cuda_quantize_nhwc``), codes and scales bit-equal, in turns plain,
-  kernel, kernel, plain.
+  both forms bit-equal;
+- the activation's quantization ahead of those 39 convs
+  (``cuda_quantize_nhwc``): each distinct shape and the 39 as a set from
+  CUDA graphs, codes and scales of both forms bit-equal to each other and
+  to the plain pass (``quantize_nhwc_plain``, timed once beside them).
 
 ``--sweep`` times other Jacobi launch plans at each level, other
 GroupNorm cluster sizes at each FastPanoNet shape (device time under the
-profiler, through ``run_plan``) and other qconv plans (tile width, ring
-depth, split of K) at each int8 conv shape, the evidence behind the three
-plan functions.  ``--kernels`` picks which of ``jacobi,groupnorm,qconv``
-to time (all by default).  ``--sass`` prints each kernel's SASS opcode counts
+profiler, through ``run_plan``), other qconv plans (tile width, ring
+depth, split of K) at each int8 conv shape and other quantization plans
+(blocks an SM, images a wave; ``run_quantize_plan``) at each of its
+shapes, the evidence behind the four plan functions.  ``--kernels`` picks
+which of ``jacobi,groupnorm,qconv,quantize`` to time (all by default).  ``--sass`` prints each kernel's SASS opcode counts
 (``cuobjdump`` beside nvcc).  It needs one CUDA card and nvcc; it prints
 the card's name and power limit and, last, one JSON line of the numbers.
 """
@@ -82,11 +83,17 @@ def load_old_kernels(tree):
             importlib.import_module(f"{name}.qconv") if has_qconv else None)
 
 
+def launches_of(module, counter, fn):
+    """Kernel launches that ``module``'s wrapper counted in ``counter`` for
+    one ``fn()``."""
+    before = getattr(module, counter)
+    fn()
+    return getattr(module, counter) - before
+
+
 def launches(module, fn):
     """Kernel launches that ``module``'s wrapper counted for one ``fn()``."""
-    before = module.LAUNCHES
-    fn()
-    return module.LAUNCHES - before
+    return launches_of(module, "LAUNCHES", fn)
 
 
 def device_ms(fn, repeat):
@@ -221,18 +228,23 @@ def _graph_ms(fn):
     return chip_smoke._graph_ms(fn, 5, 3)
 
 
-def qconv_ab(old_kq, rounds, sweep):
-    """The int8 convs and their quantization on one forward of the zoo GN
+def int8_calls():
+    """(QConv, input) of the 39 int8 convs of one forward of the zoo GN
     perspective net's int8 graph (15 views of a panorama at 256x256)."""
     from panodepth_torch.e2e import load_model_checkpoint
-    from panodepth_torch.kernels import qconv as kq
 
     dev = torch.device("cuda")
     net, _ = load_model_checkpoint(chip_smoke.GN_PERSP_CKPT, quantize=True)
     rgb = chip_smoke._pano_feed(chip_smoke.make_rgb(chip_smoke.SEED, 2048),
                                 dev)[None]
     feed = chip_smoke._family_input("gn_perspective", rgb)
-    calls = chip_smoke._qconv_calls(net, feed)
+    return chip_smoke._qconv_calls(net, feed)
+
+
+def qconv_ab(old_kq, calls, rounds, sweep):
+    """The int8 convs of one forward (``calls``)."""
+    from panodepth_torch.kernels import qconv as kq
+
     args = [chip_smoke._qconv_args(m, x) for m, x in calls]
     mods = dict(new=kq, **({"old": old_kq} if old_kq else {}))
     shapes, rows = {}, []
@@ -291,29 +303,96 @@ def qconv_ab(old_kq, rounds, sweep):
     print(f"qconv, the {len(args)} convs of a forward: device ms from a "
           f"CUDA graph, in turns {out['set_graph_ms']!r}; launches "
           f"{out['launches']}")
-    # the quantization ahead of those convs: the plain pass against the
-    # kernel, on the same activations
+    return out
+
+
+def quantize_ab(old_kq, calls, rounds, sweep):
+    """The quantization ahead of the int8 convs of one forward
+    (``calls``): the earlier kernel against this one."""
+    from panodepth_torch.kernels import qconv as kq
+
     xs = [x for _, x in calls]
+    mods = dict(new=kq, **({"old": old_kq} if old_kq else {}))
     for x in xs:
-        q, sx = kq.cuda_quantize_nhwc(x)
-        wq, wsx = kq.quantize_nhwc_plain(x)
-        if not (torch.equal(q, wq) and torch.equal(sx, wsx)):
-            raise AssertionError(f"quantize {tuple(x.shape)}: kernel and "
-                                 f"plain differ")
-    quant = dict(old=lambda: [kq.quantize_nhwc_plain(x) for x in xs],
-                 new=lambda: [kq.cuda_quantize_nhwc(x) for x in xs])
-    out["quantize_graph_ms"] = in_turns(
-        quant, lambda f: chip_smoke._graph_ms(f, reps=1), rounds)
+        want_q, want_sx = kq.quantize_nhwc_plain(x)
+        for name, q in mods.items():
+            got_q, got_sx = q.cuda_quantize_nhwc(x)
+            if not (torch.equal(got_q, want_q) and torch.equal(
+                    got_sx.view(torch.int32), want_sx.view(torch.int32))):
+                raise AssertionError(f"{name} quantize {tuple(x.shape)}: "
+                                     f"not bit-equal to the plain pass")
+    rows, seen = [], set()
+    for x in xs:
+        key = (*x.shape, str(x.dtype).replace("torch.", ""))
+        if key not in seen:
+            seen.add(key)
+            rows.append((key, x))
+    count = {key: sum(1 for y in xs if (*y.shape, str(y.dtype).replace(
+        "torch.", "")) == key) for key, _ in rows}
+    out = dict(shapes=[])
+    for key, x in rows:
+        forms = {name: (lambda q=q, x=x: q.cuda_quantize_nhwc(x))
+                 for name, q in mods.items()}
+        plan = chip_smoke._quantize_plan_of(x)
+        nbytes = x.numel() * x.element_size() + x.numel() + x.shape[0] * 4
+        row = dict(shape=key, calls=count[key],
+                   plan=[plan.tc, plan.bw, plan.nb, plan.k, plan.ipw,
+                         plan.spi, plan.blocks_per_sm],
+                   bound_ms=nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3,
+                   graph_ms=in_turns(forms, _graph_ms, rounds))
+        print(f"quantize (N, C, H, W, dtype) {key} x{count[key]}: "
+              f"{chip_smoke._plan_text(plan)}: device ms from a CUDA graph, "
+              f"in turns {row['graph_ms']!r}, bound {row['bound_ms']!r}")
+        if sweep:
+            row["sweep"] = []
+            want_q, want_sx = kq.quantize_nhwc_plain(x)
+            n, c = x.shape[:2]
+            tried = set()
+            for bps in kq.Q_BLOCKS_PER_SM:
+                for ipw in sorted({1, 2, 3, 4, 5, 8, n}):
+                    try:
+                        p = kq.quantize_plan(n, c, x[0, 0].numel(), x.dtype,
+                                             True, kq._sms(x.device), bps,
+                                             min(ipw, n))
+                    except ValueError:
+                        continue
+                    if p in tried:
+                        continue
+                    tried.add(p)
+                    run = lambda p=p, x=x: kq.run_quantize_plan(x, p)
+                    q, sx = run()
+                    if not (torch.equal(q, want_q) and torch.equal(sx, want_sx)):
+                        raise AssertionError(f"plan {p} not bit-equal")
+                    ms = _graph_ms(run)
+                    row["sweep"].append(dict(
+                        blocks_per_sm=bps, ipw=p.ipw, waves=p.waves,
+                        grid=p.grid, stage=p.stage_bytes, l2=p.l2,
+                        device_ms=ms, chosen=p == plan))
+                    print(f"  sweep {key}: {bps} blocks an SM, {p.ipw} "
+                          f"images a wave: {chip_smoke._plan_text(p)}: "
+                          f"{ms!r} ms" + (" (quantize_plan)" if p == plan
+                                          else ""))
+        out["shapes"].append(row)
+    sets = {name: (lambda q=q: [q.cuda_quantize_nhwc(x) for x in xs])
+            for name, q in mods.items()}
+    out["set_graph_ms"] = in_turns(
+        sets, lambda f: chip_smoke._graph_ms(f, reps=1), rounds)
+    out["plain_set_graph_ms"] = chip_smoke._graph_ms(
+        lambda: [kq.quantize_nhwc_plain(x) for x in xs], reps=1)
+    out["launches"] = {
+        name: launches_of(mods[name], "QUANTIZE_LAUNCHES", f)
+        for name, f in sets.items()}
     # each input read once, one code written per real element (not the
     # stem's padding of 3 channels to 16), the scales
     nbytes = sum(x.numel() * x.element_size() + x.numel() + x.shape[0] * 4
                  for x in xs)
-    out["quantize_bound_ms"] = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
+    out["bound_ms"] = nbytes / chip_smoke.PEAK_BYTES_PER_S * 1e3
     print(f"quantize, ahead of the {len(xs)} convs (codes and scales "
-          f"bit-equal): device ms from a CUDA graph, in turns (old = the "
-          f"plain pass, new = the kernel) {out['quantize_graph_ms']!r}; "
-          f"bound {out['quantize_bound_ms']!r} ms ({nbytes / 1e6:.1f} MB, "
-          f"each input read once, the codes and scales written)")
+          f"bit-equal): device ms from a CUDA graph, in turns "
+          f"{out['set_graph_ms']!r}; the plain pass "
+          f"{out['plain_set_graph_ms']!r}; launches {out['launches']}; "
+          f"bound {out['bound_ms']!r} ms ({nbytes / 1e6:.1f} MB, each input "
+          f"read once, the codes and scales written)")
     return out
 
 
@@ -357,7 +436,7 @@ def main():
                     help="rounds of the old,new,new,old turns")
     ap.add_argument("--sass", action="store_true",
                     help="print the new kernels' SASS opcode counts")
-    ap.add_argument("--kernels", default="jacobi,groupnorm,qconv",
+    ap.add_argument("--kernels", default="jacobi,groupnorm,qconv,quantize",
                     help="which kernels to time (comma-separated)")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
@@ -379,8 +458,12 @@ def main():
         if "groupnorm" in which:
             res["group_norm"] = group_norm_ab(old_kg, args.rounds,
                                               args.sweep)
+        calls = int8_calls() if which & {"qconv", "quantize"} else None
         if "qconv" in which:
-            res["qconv"] = qconv_ab(old_kq, args.rounds, args.sweep)
+            res["qconv"] = qconv_ab(old_kq, calls, args.rounds, args.sweep)
+        if "quantize" in which:
+            res["quantize"] = quantize_ab(old_kq, calls, args.rounds,
+                                          args.sweep)
     print(smi)
     print(json.dumps(dict(card=smi, sass=sass, **res)))
 

@@ -597,3 +597,304 @@ def test_quantize_twin_matches_jax(c, dtype):
     y = np.asarray(conv.apply(params, xj))
     back = np.rint(y / np.asarray(jsx)).astype(np.int8)
     np.testing.assert_array_equal(q[..., :c].numpy(), back)
+
+
+# --- the quantization's launch plan (kernels/qconv.quantize_plan) ---
+
+# the 14 quantization inputs of the zoo GN perspective net on 15 views at
+# 256x256 (the inputs of its 39 int8 convs): (C, H, W, dtype)
+GN_QUANTIZE_SHAPES = [
+    (3, 256, 256, "bfloat16"), (32, 128, 128, "float32"),
+    (64, 64, 64, "float32"), (128, 32, 32, "float32"),
+    (256, 16, 16, "float32"), (512, 8, 8, "float32"),
+    (128, 16, 16, "bfloat16"), (128, 16, 16, "float32"),
+    (128, 32, 32, "bfloat16"), (128, 64, 64, "float32"),
+    (128, 64, 64, "bfloat16"), (128, 128, 128, "float32"),
+    (128, 128, 128, "bfloat16"), (64, 256, 256, "bfloat16")]
+# odd inputs (N, C, H, W, dtype, aligned): N = 1, C = 3 and 40 (below and
+# off 16), 7x11 pixels (rows TMA refuses), an unaligned input, a 512-view's
+# decoder input (the L2 path), an image larger than the L2 cache
+ODD_QUANTIZE = [
+    (1, 3, 7, 11, "float32", True), (1, 3, 7, 11, "bfloat16", True),
+    (3, 40, 7, 11, "bfloat16", True), (3, 40, 9, 130, "float32", True),
+    (4, 3, 17, 23, "float32", True), (5, 64, 66, 66, "float32", True),
+    (15, 128, 32, 32, "float32", False), (2, 16, 8, 8, "bfloat16", False),
+    (2, 64, 512, 512, "bfloat16", True), (1, 64, 512, 512, "float32", True),
+    (3, 600, 4, 4, "float32", True), (40, 32, 8, 8, "bfloat16", True)]
+QUANTIZE_CASES = ([(15, c, h, w, dt, True)
+                   for c, h, w, dt in GN_QUANTIZE_SHAPES] + ODD_QUANTIZE)
+
+
+def test_gn_quantize_shapes_are_the_nets_own():
+    """The table above is the int8 GN net's: every QConv input of a forward
+    (at 64x64, so the sizes are a quarter of 256x256's), with its type."""
+    from panodepth_torch.models import layers, quantize
+    from panodepth_torch.models.perspective import PerspectiveDepthNet
+
+    net = PerspectiveDepthNet()
+    layers.init_params(net, torch.Generator().manual_seed(0))
+    qnet = quantize.quantize_perspective(net)
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda mod, a: seen.append((
+        a[0].shape[1], 4 * a[0].shape[2], 4 * a[0].shape[3],
+        str(a[0].dtype).replace("torch.", ""))))
+        for m in quantize.qconvs(qnet)]
+    with torch.no_grad():
+        qnet(torch.rand(1, 64, 64, 3))
+    for h in hooks:
+        h.remove()
+    assert len(seen) == 39 and set(seen) == set(GN_QUANTIZE_SHAPES)
+    assert len(GN_QUANTIZE_SHAPES) == 14
+
+
+def _quantize_plan(n, c, h, w, dtype, aligned, **kw):
+    from panodepth_torch.kernels import qconv as kq
+
+    return kq.quantize_plan(n, c, h * w, getattr(torch, dtype), aligned, **kw)
+
+
+def _fits_somewhere(c, pixels, esize, tma, sms):
+    """Whether some tile shape within a block's shared memory needs no
+    more tiles than a grid of ``sms`` SMs has blocks, at some number of
+    blocks an SM."""
+    from panodepth_torch.kernels import qconv as kq
+
+    for bps in kq.Q_BLOCKS_PER_SM:
+        for tc, bw, nb in kq._geometries(c, pixels, esize, tma):
+            p = kq.QuantizePlan(1, c, pixels, esize, tma, tc, bw, nb, 1, 1,
+                                bps)
+            if p.smem_bytes <= kq.smem_max(bps) and p.tiles <= sms * bps:
+                return True
+    return False
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,c,h,w,dtype,aligned", QUANTIZE_CASES)
+def test_quantize_plan_covers_each_element_once(n, c, h, w, dtype, aligned,
+                                                sms):
+    """Every element of every image falls in exactly one tile of one slice
+    of one wave, and every 16-channel piece of every output pixel is
+    written by exactly one tile; a slice is one image's (its boxes never
+    reach past the image's channels or pixels); the stages and the
+    codes' tile (pixel rows of an odd number of 16-byte pieces) within
+    the shared memory of the plan's blocks an SM; the grid within the
+    co-resident blocks; TMA's box limits; the L2 path exactly where no
+    tile within a block's shared memory lets an image's tiles fit the
+    grid's blocks."""
+    from panodepth_torch.kernels import qconv as kq
+
+    p = _quantize_plan(n, c, h, w, dtype, aligned, sms=sms)
+    pixels = h * w
+    assert (p.n, p.c, p.pixels, p.esize) == (n, c, pixels,
+                                             2 if dtype == "bfloat16" else 4)
+    assert p.tma == (aligned and pixels * p.esize % 16 == 0)
+    seen = np.zeros((n, c, pixels), np.uint8)
+    groups = np.zeros((n, pixels, p.cinp // 16), np.uint8)
+    for wave in range(p.waves):
+        for block in range(p.grid):
+            img = p.image(wave, block)
+            if img is None:
+                assert wave == p.waves - 1
+                continue
+            tiles = p.slice_tiles(block)
+            assert 1 <= len(tiles) <= p.k
+            for t in tiles:
+                c0, p0 = p.tile_origin(t)
+                assert 0 <= c0 < c and 0 <= p0 < pixels
+                seen[img, c0:c0 + p.tc, p0:p0 + p.width] += 1
+                g0 = c0 // 16
+                g1 = min(c0 + -(-p.tc // 16) * 16, p.cinp) // 16
+                groups[img, p0:p0 + p.width, g0:g1] += 1
+    assert (seen == 1).all() and (groups == 1).all()
+    assert p.tc == c or (p.tc % 32 == 0 and p.tc < c)
+    assert p.bw * p.esize % 16 == 0 and p.box_bytes % kq.Q_ALIGN == 0
+    if p.tma:
+        assert p.bw <= kq.MAX_BOX and p.tc <= kq.MAX_BOX
+    else:
+        assert p.nb == 1
+    assert p.blocks_per_sm in kq.Q_BLOCKS_PER_SM
+    assert p.smem_bytes <= kq.smem_max(p.blocks_per_sm)
+    assert p.smem_bytes == (kq.Q_STAGES * p.stage_bytes + p.code_bytes
+                            + kq.Q_ALIGN)
+    assert p.code_stride // 16 % 2 == 1 and p.code_stride >= p.tcp
+    assert 32 <= p.code_px <= p.width or p.code_px == p.width
+    assert p.code_bytes >= p.code_px * p.code_stride
+    per_block = p.smem_bytes + kq.Q_SMEM_STATIC + kq.SMEM_RESERVED
+    assert p.smem_bytes + kq.Q_SMEM_STATIC <= SMEM_MAX
+    assert p.blocks_per_sm * per_block <= kq.SMEM_SM
+    assert p.grid <= sms * p.blocks_per_sm
+    assert p.l2 == (not _fits_somewhere(c, pixels, p.esize, p.tma, sms))
+    image_bytes = c * pixels * p.esize
+    budget = max(sms * b * kq.smem_max(b) // kq.Q_STAGES
+                 for b in kq.Q_BLOCKS_PER_SM)
+    if image_bytes > budget:
+        assert p.l2 and p.ipw == 1
+    if p.l2:
+        assert p.spi * p.k >= p.tiles > (p.spi - 1) * p.k
+
+
+def test_quantize_plans_of_the_net():
+    """At 15 views: the small layers in one wave, every image resident (no
+    L2 path), the 8.39 MB decoder images one a wave, and no wave left
+    with fewer images than the one before."""
+    for c, h, w, dt in GN_QUANTIZE_SHAPES:
+        p = _quantize_plan(15, c, h, w, dt, True)
+        assert p.tma and not p.l2
+        if c * h * w <= 128 * 32 * 32:
+            assert p.waves == 1, (c, h, w, dt)
+        if c * h * w * p.esize > 8e6:
+            assert p.ipw == 1 and p.waves == 15
+        assert 15 - (p.waves - 1) * p.ipw <= p.ipw
+
+
+def test_quantize_plan_options_and_refusals():
+    """``blocks_per_sm`` and ``images_per_wave`` pick a candidate (the
+    A/B's sweep); a shape no plan takes is refused; the plan is cached."""
+    from panodepth_torch.kernels import qconv as kq
+
+    p = _quantize_plan(15, 512, 8, 8, "float32", True, blocks_per_sm=2,
+                       images_per_wave=5)
+    assert (p.blocks_per_sm, p.ipw, p.waves) == (2, 5, 3)
+    assert p.grid <= kq.SMS * p.blocks_per_sm
+    assert _quantize_plan(15, 512, 8, 8, "float32", True) is \
+        _quantize_plan(15, 512, 8, 8, "float32", True)
+    with pytest.raises(ValueError, match="no plan"):
+        _quantize_plan(15, 128, 128, 128, "float32", True, blocks_per_sm=2,
+                       images_per_wave=15)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        kq.quantize_plan(2, 3, 16, torch.float64)
+
+
+def _emulate_quantize(x, plan):
+    """The kernel's walk in numpy: each block of each wave takes its slice's
+    tiles (boxes zero past C and H*W), publishes the max of |x|'s float
+    bits over them on its image's word, and once the image's words are in,
+    writes the tiles' codes (padding channels 0); returns (int8 NHWC codes,
+    f32 scales)."""
+    xf = x.float().numpy()
+    n, c = xf.shape[:2]
+    flat = xf.reshape(n, c, -1)
+    pixels = flat.shape[2]
+    rows_pad = plan.tiles_c * plan.tc - c
+    cols_pad = plan.tiles_p * plan.width - pixels
+    padded = np.pad(flat, ((0, 0), (0, rows_pad), (0, cols_pad)))
+    amax = np.zeros(n, np.uint32)
+    q = np.zeros((n, pixels, plan.cinp), np.int8)
+    for wave in range(plan.waves):
+        words = {}
+        for block in range(plan.grid):
+            img = plan.image(wave, block)
+            if img is None:
+                continue
+            m = np.uint32(0)
+            for t in plan.slice_tiles(block):
+                c0, p0 = plan.tile_origin(t)
+                tile = padded[img, c0:c0 + plan.tc, p0:p0 + plan.width]
+                m = max(m, np.abs(tile).view(np.uint32).max())
+            words[img] = max(words.get(img, np.uint32(0)), m)
+        for img, bits in words.items():
+            amax[img] = bits
+            a = np.array([bits], np.uint32).view(np.float32)
+            s = torch.tensor(a).clamp_min(1e-8) / torch.full((), 127.0)
+            for block in range(plan.grid):
+                if plan.image(wave, block) != img:
+                    continue
+                for t in plan.slice_tiles(block):
+                    c0, p0 = plan.tile_origin(t)
+                    tile = torch.tensor(
+                        padded[img, c0:c0 + plan.tc, p0:p0 + plan.width])
+                    codes = torch.clamp(torch.round(tile / s), -127, 127) \
+                        .to(torch.int8).numpy()
+                    w = min(plan.width, pixels - p0)
+                    vr = min(plan.tc, c - c0)
+                    q[img, p0:p0 + w, c0:c0 + vr] = codes[:vr, :w].T
+    sx = torch.tensor(amax.view(np.float32)).clamp_min(1e-8) \
+        / torch.full((), 127.0)
+    return torch.tensor(q).view(n, *x.shape[2:], plan.cinp), sx
+
+
+@pytest.mark.parametrize("n,c,h,w,dtype,aligned,forced", [
+    (5, 40, 7, 11, "bfloat16", True, None),
+    (6, 3, 17, 23, "float32", True, None),
+    (4, 64, 16, 16, "float32", True, (1, 2)),
+    (3, 48, 12, 20, "float32", True, ("k", 3)),
+    (7, 32, 8, 8, "bfloat16", False, None)])
+def test_quantize_plan_emulated_equals_plain(n, c, h, w, dtype, aligned,
+                                            forced):
+    """The plan's blocks, emulated, give the plain twin's codes and scales
+    bit for bit: the tiles cover every element once, zeros past C and H*W
+    change no max, each image's words combine its slices (ties, zeros and
+    -0.0 among the images; the card holds the kernel itself to the twin).
+    ``forced``: (blocks an SM, images a wave), or a slice of k tiles (the
+    L2 path) on a small image."""
+    import dataclasses
+
+    from panodepth_torch.kernels import qconv as kq
+
+    xs, _ = _quantize_input(n, c, dtype, seed=c + n)
+    x = torch.nn.functional.interpolate(torch.tensor(xs), size=(h, w),
+                                        mode="nearest")
+    x = x.to(getattr(torch, dtype))
+    if forced and forced[0] == "k":
+        plan = _quantize_plan(n, c, h, w, dtype, aligned)
+        plan = dataclasses.replace(plan, k=forced[1], ipw=1)
+        assert plan.l2 and plan.spi < plan.tiles
+    elif forced:
+        plan = _quantize_plan(n, c, h, w, dtype, aligned,
+                              blocks_per_sm=forced[0],
+                              images_per_wave=forced[1])
+    else:
+        plan = _quantize_plan(n, c, h, w, dtype, aligned)
+    got_q, got_sx = _emulate_quantize(x, plan)
+    want_q, want_sx = kq.quantize_nhwc_plain(x)
+    assert torch.equal(got_q, want_q)
+    assert torch.equal(got_sx.view(torch.int32), want_sx.view(torch.int32))
+
+
+def _fast_codes(x, s):
+    """``csrc/quantize.cu``'s fast_code in float32 numpy (IEEE round to
+    nearest, as the kernel's intrinsics): f = x * rn(1 / s), rounded by
+    adding 1.5 * 2^23, the code the low byte of the sum's bits; returns
+    (codes, near a half-integer or not finite)."""
+    magic = np.float32(12582912.0)
+    rcp = np.float32(1) / s
+    with np.errstate(invalid="ignore", over="ignore"):
+        f = x * rcp
+        y = f + magic
+        near = ~(np.abs(f - (y - magic)) < np.float32(0.5 - 2.0 ** -15))
+    codes = y.view(np.int32).astype(np.int8)  # the low byte of the bits
+    return codes, near
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "bf16", "tiny"])
+def test_quantize_fast_code_rule_is_exact(kind):
+    """Where fast_code does not flag an element, its code is the exact
+    division's (rintf(x / s) clamped), on a million elements an image
+    scale: normal values, exact ties (k + 0.5) / 8 under amax 127 / 8,
+    bf16 values, and an image below the 1e-8 floor; the flagged share
+    stays small but for the ties, which are all flagged; a NaN scale
+    flags every element."""
+    rng = np.random.RandomState(len(kind))
+    if kind == "ties":
+        x = ((rng.randint(-127, 127, 1 << 20) + 0.5) / 8).astype(np.float32)
+        x[0] = 127 / 8
+    elif kind == "tiny":
+        x = (rng.normal(0, 1e-9, 1 << 20)).astype(np.float32)
+    else:
+        x = (rng.normal(0, 1, 1 << 20)
+             * 10.0 ** rng.uniform(-3, 3)).astype(np.float32)
+    if kind == "bf16":
+        x = torch.tensor(x).to(torch.bfloat16).float().numpy()
+    amax = np.abs(x).max()
+    s = np.float32(max(amax, np.float32(1e-8))) / np.float32(127)
+    exact = np.clip(np.rint(x / s), -127, 127).astype(np.int32)
+    codes, near = _fast_codes(x, s)
+    assert (codes[~near] == exact[~near]).all()
+    assert np.abs(exact).max() <= 127
+    if kind == "ties":  # all but the amax, 127 / 8 itself
+        assert near[1:].all() and not near[0]
+    else:
+        assert near.mean() < 1e-3
+    codes, near = _fast_codes(np.array([1.0, np.nan, np.inf], np.float32),
+                              np.float32(np.nan))
+    assert near.all()

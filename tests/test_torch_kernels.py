@@ -8,6 +8,9 @@ them with ``python -m pytest --noconftest tests/test_torch_kernels.py -m
 cuda`` (this file needs neither JAX nor ``tests/conftest.py``).
 """
 
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -624,7 +627,9 @@ def test_quantize_auto_on_cpu_routes_to_plain_and_counts_no_launch():
     assert _build.library_path("quantize").name.startswith("libquantize-")
 
 
-@pytest.mark.parametrize("bad", ["cpu_tensor", "f64", "three_d", "empty"])
+@pytest.mark.parametrize("bad", ["cpu_tensor", "f64", "three_d", "empty",
+                                 "other_plan", "tma_unaligned",
+                                 "three_blocks"])
 def test_cuda_quantize_refuses_bad_arguments(bad):
     from panodepth_torch.kernels import qconv as kq
 
@@ -639,9 +644,22 @@ def test_cuda_quantize_refuses_bad_arguments(bad):
         x = x[0]
     elif bad == "empty":
         x = x[:, :, :0]
+    call = kq.cuda_quantize_nhwc
+    # plans the kernel does not take (run_quantize_plan): another shape's,
+    # TMA on an input 4 bytes off its alignment, three blocks an SM
+    plan = kq.quantize_plan(2, 3, 16)
+    if bad == "other_plan":
+        plan = kq.quantize_plan(2, 3, 64)
+    elif bad == "tma_unaligned":
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+    elif bad == "three_blocks":
+        plan = dataclasses.replace(plan, blocks_per_sm=3)
+    if bad in ("other_plan", "tma_unaligned", "three_blocks"):
+        assert plan.tma
+        call = functools.partial(kq.run_quantize_plan, plan=plan)
     before = kq.QUANTIZE_LAUNCHES
     with pytest.raises(err):
-        kq.cuda_quantize_nhwc(x)
+        call(x)
     assert kq.QUANTIZE_LAUNCHES == before
 
 
@@ -700,6 +718,141 @@ def test_cuda_quantize_bit_equal_to_plain(cuda_device, n, c, h, w, dtype):
         want_q, want_sx = kq.quantize_nhwc_plain(x)
         assert torch.equal(sx.view(torch.int32), want_sx.view(torch.int32))
         assert torch.equal(q, want_q)
+
+
+def _nan_in_one(x):
+    """``x`` (3 images or more) with one NaN in image 1."""
+    x = x.clone()
+    x[1, x.shape[1] // 2, 0, 1] = float("nan")
+    return x
+
+
+def _quantize_edge(case, device):
+    """The smoke's edge inputs (``chip_smoke.QUANTIZE_EDGES``'s kinds)."""
+    kind, (n, c, h, w), dtype = case
+    x = _activation(n, c, h, w, dtype, seed=n + c + h, device=device)
+    if kind == "offset":  # a view 4 bytes into its storage
+        flat = torch.empty(x.numel() + 8, dtype=dtype, device=device)
+        step = 4 // x.element_size()
+        x = flat[step:step + x.numel()].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 4
+    elif kind == "nan":
+        x = _nan_in_one(x)
+    return x
+
+
+QUANTIZE_EDGE_CASES = [
+    ("plain", (1, 3, 64, 64), torch.float32),
+    ("plain", (3, 40, 33, 64), torch.bfloat16),
+    ("plain", (3, 40, 7, 11), torch.float32),
+    ("plain", (3, 3, 7, 11), torch.bfloat16),
+    ("offset", (3, 64, 32, 32), torch.float32),
+    ("offset", (3, 16, 9, 9), torch.bfloat16),
+    ("nan", (3, 128, 16, 16), torch.float32),
+    ("nan", (3, 40, 7, 11), torch.bfloat16),
+    ("plain", (2, 64, 512, 512), torch.bfloat16)]
+
+
+def _hold_quantize(x, q, sx):
+    """The kernel's codes and scales against the plain twin's: bit-equal,
+    but for an image with a NaN: its scale NaN, its codes -127 where the
+    channel is real (fmaxf(NaN, -127)) and 0 in the padding."""
+    from panodepth_torch.kernels import qconv as kq
+
+    want_q, want_sx = kq.quantize_nhwc_plain(x)
+    bad = torch.isnan(x.float()).flatten(1).any(1)
+    assert torch.equal(torch.isnan(sx), bad)
+    ok = ~bad
+    assert torch.equal(sx[ok].view(torch.int32), want_sx[ok].view(torch.int32))
+    assert torch.equal(q[ok], want_q[ok])
+    c = x.shape[1]
+    assert (q[bad][..., :c] == -127).all() and not q[bad][..., c:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QUANTIZE_EDGE_CASES,
+                         ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}")
+def test_cuda_quantize_edge_cases(cuda_device, case):
+    """N = 1, C = 3 and 40, 7x11 pixels (rows TMA refuses), an input 4
+    bytes off its alignment, an all-zero image, ties, -0.0, a NaN in one
+    image of three and a 512-view's input (the L2 path): one launch each,
+    bit-equal to the plain twin but where a NaN is."""
+    from panodepth_torch.kernels import qconv as kq
+
+    x = _quantize_edge(case, cuda_device)
+    plan = kq.quantize_plan(*x.shape[:2], x[0, 0].numel(), x.dtype,
+                            x.data_ptr() % 16 == 0, kq._sms(x.device))
+    assert plan.l2 == (case[1] == (2, 64, 512, 512))
+    assert plan.tma == (x.data_ptr() % 16 == 0
+                        and x[0, 0].numel() * x.element_size() % 16 == 0)
+    before = kq.QUANTIZE_LAUNCHES
+    q, sx = kq.cuda_quantize_nhwc(x)
+    torch.cuda.synchronize()
+    assert kq.QUANTIZE_LAUNCHES == before + 1 == before + kq.QUANTIZE_KERNELS
+    _hold_quantize(x, q, sx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w,dtype", [
+    (15, 512, 8, 8, torch.float32), (15, 128, 32, 32, torch.bfloat16),
+    (5, 40, 17, 23, torch.float32), (4, 64, 64, 64, torch.float32)])
+def test_cuda_quantize_plans_bit_equal(cuda_device, n, c, h, w, dtype):
+    """Every form of the kernel: one or two blocks an SM, one image a wave
+    up to all, plain loads in place of TMA, slices of several tiles (the
+    L2 path on an image that would fit): each bit-equal to the plain
+    twin; a plan of another shape is refused."""
+    import dataclasses
+
+    from panodepth_torch.kernels import qconv as kq
+
+    x = _activation(n, c, h, w, dtype, seed=c + h, device=cuda_device)
+    want_q, want_sx = kq.quantize_nhwc_plain(x)
+    base = kq.quantize_plan(n, c, h * w, dtype, True, kq._sms(x.device))
+    plans = {base, dataclasses.replace(base, tma=False, bw=base.width, nb=1),
+             dataclasses.replace(base, k=2, ipw=1)}
+    for bps in kq.Q_BLOCKS_PER_SM:
+        for ipw in (1, 2, n):
+            try:
+                plans.add(kq.quantize_plan(n, c, h * w, dtype, True,
+                                           kq._sms(x.device), bps, ipw))
+            except ValueError:
+                continue
+    for plan in plans:
+        if plan.smem_bytes > kq.smem_max(plan.blocks_per_sm):
+            continue
+        q, sx = kq.run_quantize_plan(x, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(q, want_q), plan
+        assert torch.equal(sx.view(torch.int32), want_sx.view(torch.int32))
+    with pytest.raises(ValueError, match="plan"):
+        kq.run_quantize_plan(x[:, :, :1], base)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_graph_replays(cuda_device):
+    """Captured in a CUDA graph and replayed on new inputs: the image words
+    come zeroed for every replay (the memset node), so each replay's
+    codes and scales are the plain twin's of its input."""
+    from panodepth_torch.kernels import qconv as kq
+
+    xs = [_activation(15, 64, 64, 64, torch.float32, seed=s,
+                      device=cuda_device) for s in range(3)]
+    static = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kq.cuda_quantize_nhwc(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, sx = kq.cuda_quantize_nhwc(static)
+    for x in xs + xs[::-1]:
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        want_q, want_sx = kq.quantize_nhwc_plain(x)
+        assert torch.equal(q, want_q)
+        assert torch.equal(sx.view(torch.int32), want_sx.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -12,8 +12,9 @@ Phases, each printing its elapsed seconds:
 1. device  — the card's name and power limit.
 2. build   — every CUDA source of the port (the Jacobi, the GroupNorm, the
              int8 conv, the activation's quantization) compiled with nvcc
-             and the JPEG codec with g++ (in parallel), with ptxas's
-             registers, shared memory and spills per kernel.
+             and the JPEG and PNG codecs with g++ (in parallel), with
+             ptxas's registers, shared memory and spills per kernel, and
+             the zlib the PNG codec found (header, run-time version).
 3. kernel  — the Jacobi kernel bit-equal to its plain PyTorch version at
              every level of the 2048 and the 4096 plan, each level's launch
              plan printed; the 2048 levels timed beside the plain version
@@ -29,7 +30,10 @@ Phases, each printing its elapsed seconds:
              bit-equal), ``resample_view``, ``depth_view_to_equirect``,
              ``rotate_equirect`` and ``extract_view_elevated`` at 2048.
 5. cli     — ``python -m panodepth_torch 0`` (``cli.main``) on two such
-             scenes written as files, then again to check resume; then
+             scenes written as files (the first scene's baseline and views
+             with Paeth and Average rows, as libpng and OpenCV write them,
+             its output bit-equal to the in-memory merge), then again to
+             check resume; then
              ``python -m panodepth_torch.analyze`` (``analyze.main``) on the
              first result against its gt, ``--laplacian --json`` and
              ``--mono360 --json``, on the card equal to ``--device cpu``
@@ -75,9 +79,14 @@ Phases, each printing its elapsed seconds:
              panorama, a replay's kernels under the profiler, one 4096
              merge through a graph against the eager plain-Jacobi path,
              ``merge_many`` on files at batch 4 (stream off and on,
-             profiled), the CLIs with ``--batch-size 4 --profile`` (file
-             mode) and ``--batch-size 2 --profile --stream on`` (model
-             mode) against the single-panorama outputs, with resume; then
+             profiled); the host's loads: one panorama's 16 files decoded
+             by the Python twin, the native codec and the native
+             prefetcher (Up-filtered, and phase cli's Paeth/Average set),
+             ``merge_many`` at batch 24 on one scene's files (host ms a
+             panorama, idle share, outputs bit-equal to batch 4's); the
+             CLIs with ``--batch-size 4 --profile`` (file mode) and
+             ``--batch-size 2 --profile --stream on`` (model mode) against
+             the single-panorama outputs, with resume; then
              eager and graph times in turns (eager, graph, graph, eager):
              the merge at batch 1, the batched graph at 4 and 24, the e2e
              graph at batch 2 (and its eager stages) and 8, each with the
@@ -339,6 +348,13 @@ def phase_build():
                 print("  " + line.split("'")[1][:100])
             elif "registers" in line or "spill" in line:
                 print("    " + line.strip())
+    from panodepth_torch.utils import nativeio
+
+    zl = nativeio.zlib_info()
+    print(f"pngio (the PNG codec and prefetcher): built with "
+          f"{_build.gxx_path()} {' '.join(_build.GXX_FLAGS)} ... "
+          f"{' '.join(_build.LINK_FLAGS['pngio'])}; zlib {zl['version']} at "
+          f"run time, built against zlib.h {zl['header']}")
 
 
 def _jacobi_cases(plan, rng, dev):
@@ -748,75 +764,116 @@ def _profile_merge(run, warm_ms):
             print(f"  {ms:9.4f} ms  {count:6d}  {name[:90]}")
 
 
-def phase_cli(cfg, scenes, merged0):
-    """``panodepth_torch.cli.main`` on two scenes written as files, then
-    again for resume."""
+# the rows of the first scene's baseline and views in phase cli: Paeth and
+# Average, the filters libpng and OpenCV choose for smooth depth rows
+PAETH_AVERAGE = (4, 3, 4, 4)
+
+
+def phase_cli(cfg, scenes, merged0, root):
+    """``panodepth_torch.cli.main`` on two scenes written as files into
+    ``root`` (the first scene's baseline and views with Paeth and Average
+    rows, the second's as ``io.save_png16`` writes them), then again for
+    resume.  Returns the analysis check's numbers and the first scene's 16
+    input files, which phase graphs decodes again."""
     from panodepth_torch import cli, io as pio
     from panodepth_torch.kernels import jacobi as kj
 
     layout = cfg.layout
     names = [f"pano_{i:04d}" for i in range(len(scenes))]
-    with tempfile.TemporaryDirectory(prefix="panodepth_smoke_") as root:
-        d = {k: os.path.join(root, k) for k in
-             ("rgb", "gt", "baseline", "views", "result_hohonet")}
-        for path in d.values():
-            os.makedirs(path)
-        for name, sc in zip(names, scenes):
-            # stage C reads only the names of the RGB panoramas
-            pio.save_png16(os.path.join(d["rgb"], name + ".png"),
-                           np.zeros((8, 16), np.uint16))
-            pio.save_png16(os.path.join(d["gt"], name + ".png"), sc["gt"])
-            pio.save_png16(os.path.join(d["baseline"], name + ".depth.png"),
-                           sc["base"])
-            for v, view in enumerate(sc["views"]):
-                pio.save_png16(os.path.join(
-                    d["views"], f"{name}.{layout.view_tag(v)}.png"), view)
-        argv = ["0", d["rgb"], d["gt"], d["baseline"], d["result_hohonet"],
-                "--no-extract", "--pmap-ext", ".png", "--views-folder",
-                d["views"], "--layout", cfg.layout_name,
-                "--out-width", str(cfg.out_width)]
+    d = {k: os.path.join(root, k) for k in
+         ("rgb", "gt", "baseline", "views", "result_hohonet")}
+    for path in d.values():
+        os.makedirs(path)
+    writes = []
+    for name, sc in zip(names, scenes):
+        # stage C reads only the names of the RGB panoramas
+        pio.save_png16(os.path.join(d["rgb"], name + ".png"),
+                       np.zeros((8, 16), np.uint16))
+        pio.save_png16(os.path.join(d["gt"], name + ".png"), sc["gt"])
+        files = [os.path.join(d["baseline"], name + ".depth.png")] + [
+            os.path.join(d["views"], f"{name}.{layout.view_tag(v)}.png")
+            for v in range(layout.num_views)]
+        if name == names[0]:
+            paeth_files = files
+        for f, m in zip(files, [sc["base"]] + list(sc["views"])):
+            writes.append(
+                (lambda f=f, m=m: write_png_filtered(f, m, PAETH_AVERAGE))
+                if name == names[0] else
+                (lambda f=f, m=m: pio.save_png16(f, m)))
+    _threaded(writes)
+    with open(paeth_files[1], "rb") as fp:
+        kinds = _png_row_filters(fp.read())
+    print(f"cli: {names[0]}'s baseline and {layout.num_views} views "
+          f"written with the row filters {sorted(kinds)} (Paeth 4, "
+          f"Average 3)")
+    if kinds != {3, 4}:
+        raise AssertionError(f"cli: the Paeth files' rows are {kinds}")
+    argv = ["0", d["rgb"], d["gt"], d["baseline"], d["result_hohonet"],
+            "--no-extract", "--pmap-ext", ".png", "--views-folder",
+            d["views"], "--layout", cfg.layout_name,
+            "--out-width", str(cfg.out_width)]
 
-        fresh_graphs()
-        kj.LAUNCHES = 0
-        if cli.main(argv) != 0:
-            raise AssertionError("cli.main returned non-zero")
-        launches = kj.LAUNCHES
-        want = graph_launches(sum(jacobi_launches(cfg)))
-        print(f"cli: jacobi kernel launches {launches} for {len(names)} "
-              f"panoramas (expected {want}: one graph captured, then "
-              f"replayed)")
-        if launches != want:
-            raise AssertionError(f"cli launched the kernel {launches} times")
-        for name in names:
-            for suffix in (".png", ".aligned.txt", ".png.res.png",
-                           ".png.giv.png"):
-                f = os.path.join(d["result_hohonet"], name + suffix)
-                if not os.path.isfile(f):
-                    raise AssertionError(f"cli did not write {f}")
-        manifest = os.path.join(d["result_hohonet"], "manifest.json")
-        with open(manifest) as fp:
-            done = json.load(fp)
-        if done["completed"] != names or done["quarantined"]:
-            raise AssertionError(f"manifest: {done}")
-        got = pio.read_png(os.path.join(d["result_hohonet"], names[0] + ".png"))
-        if not np.array_equal(got, merged0):
-            raise AssertionError("cli output differs from the in-memory merge "
-                                 "of the same scene")
-        print("cli: outputs written; first panorama equals the in-memory merge")
+    fresh_graphs()
+    kj.LAUNCHES = 0
+    if cli.main(argv) != 0:
+        raise AssertionError("cli.main returned non-zero")
+    launches = kj.LAUNCHES
+    want = graph_launches(sum(jacobi_launches(cfg)))
+    print(f"cli: jacobi kernel launches {launches} for {len(names)} "
+          f"panoramas (expected {want}: one graph captured, then "
+          f"replayed)")
+    if launches != want:
+        raise AssertionError(f"cli launched the kernel {launches} times")
+    for name in names:
+        for suffix in (".png", ".aligned.txt", ".png.res.png",
+                       ".png.giv.png"):
+            f = os.path.join(d["result_hohonet"], name + suffix)
+            if not os.path.isfile(f):
+                raise AssertionError(f"cli did not write {f}")
+    manifest = os.path.join(d["result_hohonet"], "manifest.json")
+    with open(manifest) as fp:
+        done = json.load(fp)
+    if done["completed"] != names or done["quarantined"]:
+        raise AssertionError(f"manifest: {done}")
+    got = pio.read_png(os.path.join(d["result_hohonet"], names[0] + ".png"))
+    if not np.array_equal(got, merged0):
+        raise AssertionError("cli output differs from the in-memory merge "
+                             "of the same scene")
+    print(f"cli: outputs written; first panorama (its inputs Paeth- and "
+          f"Average-filtered, through the native prefetcher: "
+          f"{_prefetch_route()}) bit-equal to the in-memory merge "
+          f"merged0: True")
 
-        kj.LAUNCHES = 0
-        log = stdio.StringIO()
-        with contextlib.redirect_stdout(log):
-            cli.main(argv)
-        skips = log.getvalue().count("skip!")
-        with open(manifest) as fp:
-            again = json.load(fp)
-        print(f"cli resume: {skips} skip! lines, {kj.LAUNCHES} launches")
-        if skips != len(names) or kj.LAUNCHES or again["skipped"] != names:
-            raise AssertionError("resume did not skip the finished panoramas")
-        return _analyze_check(
-            os.path.join(d["gt"], names[0] + ".png"),
-            os.path.join(d["result_hohonet"], names[0] + ".png"))
+    kj.LAUNCHES = 0
+    log = stdio.StringIO()
+    with contextlib.redirect_stdout(log):
+        cli.main(argv)
+    skips = log.getvalue().count("skip!")
+    with open(manifest) as fp:
+        again = json.load(fp)
+    print(f"cli resume: {skips} skip! lines, {kj.LAUNCHES} launches")
+    if skips != len(names) or kj.LAUNCHES or again["skipped"] != names:
+        raise AssertionError("resume did not skip the finished panoramas")
+    return _analyze_check(
+        os.path.join(d["gt"], names[0] + ".png"),
+        os.path.join(d["result_hohonet"], names[0] + ".png")), paeth_files
+
+
+def _png_row_filters(data):
+    """The set of row filter kinds of a PNG's bytes (one IDAT, gray)."""
+    w, h, depth = struct.unpack(">IIB", data[16:25])
+    at = 33  # the first chunk after IHDR
+    length, = struct.unpack(">I", data[at:at + 4])
+    raw = np.frombuffer(zlib.decompress(data[at + 8:at + 8 + length]),
+                        np.uint8)
+    return set(raw.reshape(h, -1)[:, 0].tolist())
+
+
+def _prefetch_route():
+    from panodepth_torch.utils import nativeio
+
+    return (f"{min(8, nativeio._ncpu())} threads, {nativeio._ncpu()} CPUs "
+            f"in this process's affinity")
 
 
 # the analysis CLI on the card against the same call on the CPU
@@ -907,11 +964,35 @@ def make_rgb(seed, width):
     return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
 
 
-def write_png_rgb8(path, rgb):
-    """An 8-bit RGB PNG (filter None on every row); the package has no RGB
-    writer of its own."""
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], 1)
+def write_png_filtered(path, arr, kinds):
+    """A PNG of ``arr`` (uint8 or uint16, gray (H, W) or RGB (H, W, 3))
+    whose row y carries the filter ``kinds[y % len(kinds)]`` (0 None, 1
+    Sub, 2 Up, 3 Average, 4 Paeth), filtered here from the specification
+    (the predictors read the unfiltered bytes, so whole arrays at once),
+    deflated at level 1."""
+    h, w = arr.shape[:2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    colour = 0 if arr.ndim == 2 else 2
+    bpp = (1 if arr.ndim == 2 else 3) * depth // 8
+    rows = arr.astype(">u2" if depth == 16 else np.uint8).view(np.uint8)
+    x = rows.reshape(h, -1).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    pred = {0: 0, 1: a, 2: b, 3: (a + b) >> 1}
+    if 4 in kinds:
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred[4] = np.where((pa <= pb) & (pa <= pc), a,
+                           np.where(pb <= pc, b, c))
+    ys = np.arange(h) % len(kinds)
+    out = np.empty((h, x.shape[1] + 1), np.uint8)
+    out[:, 0] = np.asarray(kinds, np.uint8)[ys]
+    for j, k in enumerate(kinds):
+        sel = ys == j
+        out[sel, 1:] = ((x - pred[k])[sel] & 0xFF).astype(np.uint8)
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
@@ -919,9 +1000,16 @@ def write_png_rgb8(path, rgb):
 
     with open(path, "wb") as fp:
         fp.write(b"\x89PNG\r\n\x1a\n"
-                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                              0, 0, 0))
+                 + chunk(b"IDAT", zlib.compress(out.tobytes(), 1))
                  + chunk(b"IEND", b""))
+
+
+def write_png_rgb8(path, rgb):
+    """An 8-bit RGB PNG (filter None on every row); the package writes no
+    RGB PNG of its own."""
+    write_png_filtered(path, rgb, (0,))
 
 
 def _bf16_steps_off(got, want, f32_tol):
@@ -2776,15 +2864,126 @@ def _write_cli_scene(root, cfg, scenes, names):
     return d
 
 
+def _host_decode(up_files, paeth_files, rounds=3):
+    """ms to decode one panorama's 16 u16 PNGs (a baseline and 15 views) on
+    this host, three ways: the Python twin (``io.read_png_py``) one file
+    after another, the native codec (``io.read_png``) one after another,
+    and the native prefetcher on 8 threads.  On the Up-filtered files the
+    twin once and the native ways in turns (``rounds`` each, medians); on
+    the Paeth/Average files the native ways so, and the twin on one file
+    only.  Every way's arrays bit-equal."""
+    from panodepth_torch import io as pio
+    from panodepth_torch.utils import nativeio
+
+    def prefetched(files):
+        with nativeio.BatchPrefetcher(files, threads=8) as pf:
+            return [pf.get(i) for i in range(len(files))]
+
+    ways = dict(twin_serial=lambda fs: [pio.read_png_py(f) for f in fs],
+                native_serial=lambda fs: [pio.read_png(f) for f in fs],
+                prefetcher=prefetched)
+    turns, got = {}, {}
+
+    def run(key, way, files):
+        t0 = time.perf_counter()
+        got[key] = ways[way](files)
+        turns.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
+
+    run("up twin_serial", "twin_serial", up_files)
+    for files, tag in ((up_files, "up"), (paeth_files, "paeth")):
+        for _ in range(rounds):
+            for way in ("native_serial", "prefetcher"):
+                run(f"{tag} {way}", way, files)
+    run("paeth twin_serial one file", "twin_serial", paeth_files[1:2])
+    same = (all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in
+                zip(got["up twin_serial"], got["up native_serial"],
+                    got["up prefetcher"]))
+            and all(np.array_equal(a, b) for a, b in zip(
+                got["paeth native_serial"], got["paeth prefetcher"]))
+            and np.array_equal(got["paeth twin_serial one file"][0],
+                               got["paeth native_serial"][1]))
+    ms = {k: float(np.median(v)) for k, v in turns.items()}
+    shape = got["up native_serial"][1].shape
+    print(f"graphs: host decode of one panorama's {len(up_files)} u16 PNGs "
+          f"(baseline {got['up native_serial'][0].shape}, views {shape}; "
+          f"{_prefetch_route()}), ms: Up-filtered: Python twin serial "
+          f"{ms['up twin_serial']!r}, native serial "
+          f"{ms['up native_serial']!r}, prefetcher (8 threads) "
+          f"{ms['up prefetcher']!r}; Paeth/Average: native serial "
+          f"{ms['paeth native_serial']!r}, prefetcher "
+          f"{ms['paeth prefetcher']!r}, Python twin on one view "
+          f"{ms['paeth twin_serial one file']!r}; every way bit-equal "
+          f"{same}; turns {turns!r}")
+    if not same:
+        raise AssertionError("graphs: the host decodes differ")
+    return dict(ms=ms, turns=turns, cpus=nativeio._ncpu(),
+                threads=min(8, nativeio._ncpu()))
+
+
+MANY_BATCH = 24
+
+
+def _merge_many_b24(d, name, cfg, root, want, dev):
+    """``merge_many`` at batch 24 on 24 items that share one scene's files
+    (no gt: the loads, the graph and the writes), each written to a file of
+    its own, in one call under the profiler that replays the batch-24
+    graph captured earlier in the phase (no launch counted): host ms a
+    panorama of that call, the device's busy share of it; every output
+    bit-equal to ``want`` (the batch-4 run's)."""
+    from panodepth_torch import io as pio, pipeline
+    from panodepth_torch.kernels import jacobi as kj
+
+    os.makedirs(os.path.join(root, "b24"))
+    items = [dict(baseline=os.path.join(d["baseline"], name + ".depth.png"),
+                  pmaps=pio.pmap_filenames(d["views"], name, cfg.layout,
+                                           ext=".png"),
+                  out=os.path.join(root, "b24", f"{j}.png"))
+             for j in range(MANY_BATCH)]
+    host = {}
+
+    def run():
+        t0 = time.perf_counter()
+        res = pipeline.merge_many(items, cfg, batch_size=MANY_BATCH,
+                                  device=dev, log=lambda *a: None)
+        torch.cuda.synchronize()
+        host.setdefault("ms", []).append((time.perf_counter() - t0) * 1e3)
+        host["res"] = res
+
+    kj.LAUNCHES = 0
+    busy, _ = _device_profile(run)
+    ms = host["ms"][-1]
+    same = (all(r is not None and np.array_equal(r.out_u16, want)
+                for r in host["res"])
+            and all(np.array_equal(pio.read_png(it["out"]), want)
+                    for it in items))
+    idle = 1 - busy / ms if busy > 0 else None
+    print(f"graphs: merge_many batch {MANY_BATCH} on one scene's files "
+          f"({_prefetch_route()}), a replay ({kj.LAUNCHES} launches "
+          f"counted), under the profiler: {ms!r} ms, {ms / MANY_BATCH!r} "
+          f"host ms a panorama, device busy {busy!r} ms, idle share "
+          f"{idle!r}; calls {host['ms']!r}; outputs and files bit-equal to "
+          f"the batch-4 run's {same}")
+    if not same:
+        raise AssertionError("graphs: merge_many at batch 24 differs")
+    if kj.LAUNCHES:
+        raise AssertionError("graphs: merge_many at batch 24 captured its "
+                             "graph anew")
+    return dict(host_ms_per_pano=ms / MANY_BATCH, calls_ms=host["ms"],
+                busy_ms=busy, idle_share=idle)
+
+
 def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
-                 smi):
+                 smi, paeth_files):
     """The compiled merge forms against the eager merge (batch 1, staged,
     batched at B = 4 and 24), the dp pair's gathered merge and e2e outputs
     against the batch-4 merge and phase e2e's batch-2 graph (``dp``,
     :meth:`DPPair.check`), one 4096 merge through the graph against the
     plain path, ``merge_many`` on files, both CLIs with --batch-size and
     --profile (and --stream on in model mode) with resume, and the
-    eager/graph times in turns."""
+    eager/graph times in turns.  Between them the host's loads: one
+    panorama's 16 files decoded by the Python twin, the native codec and
+    the prefetcher (``paeth_files``: phase cli's Paeth/Average set), and
+    ``merge_many`` at batch 24 on files."""
     from panodepth_torch import cli, fusion, io as pio, pipeline, registration
     from panodepth_torch.e2e import build_batched_e2e
     from panodepth_torch.models import fastpano
@@ -2901,8 +3100,9 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
           f"result {math.sqrt(m.mse_result)!r}")
     if not m.mse_result < m.mse_given:
         raise AssertionError("4096 output does not beat the baseline")
+    # the batched graph's capture at B = 24 stays for merge_many at batch 24
+    # below; the CLIs start from fresh graphs
     del sc4, e, p, e24, p24, out24
-    fresh_graphs()
 
     names = [f"pano_{i:04d}" for i in range(len(scenes))]
     with tempfile.TemporaryDirectory(prefix="panodepth_smoke_g_") as root:
@@ -2925,7 +3125,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
             its[-1]["baseline"] += ".missing"
             return its
 
-        many = {}
+        many, many_out = {}, {}
         for tag, kw in (("off", dict(stream_u16="off")),
                         ("on", dict(stream_u16="on")),
                         ("profile", dict(profile=True))):
@@ -2941,6 +3141,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
                   f"quarantined {res[4] is None}; time_reg_ms {reg}, "
                   f"time_fusion_ms {[r.time_fusion_ms for r in res[:4]]}")
             many[tag] = max(diffs)
+            many_out[tag] = res[0].out_u16
             if res[4] is not None or (
                     max(diffs) > (1 if tag == "on" else 0)):
                 raise AssertionError(f"merge_many ({tag}) differs")
@@ -2949,6 +3150,15 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
             if not all(np.array_equal(pio.read_png(it["out"]), r.out_u16)
                        for it, r in zip(its, res[:4])):
                 raise AssertionError("merge_many wrote other files")
+        parts.done("merge_many")
+        # the host's loads: one panorama's files three ways; merge_many at
+        # batch 24 on files
+        up_files = [os.path.join(d["baseline"], names[0] + ".depth.png")] + \
+            pio.pmap_filenames(d["views"], names[0], cfg.layout, ext=".png")
+        loads = _host_decode(up_files, paeth_files)
+        loads["merge_many_b24"] = _merge_many_b24(
+            d, names[0], cfg, root, many_out["off"], dev)
+        parts.done("host loads")
 
         # 4. the CLIs: file mode --batch-size 4 --profile; model mode
         # --batch-size 2 --profile --stream on; then resume
@@ -3014,7 +3224,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
                 or kg.LAUNCHES):
             raise AssertionError("model-mode cli resume did not skip")
 
-    parts.done("merge_many, the CLIs")
+    parts.done("the CLIs")
     # 5. eager and graph times in turns (eager, graph, graph, eager)
     fresh_graphs()
     times = {}
@@ -3064,6 +3274,7 @@ def phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs_u8, e2e, dp,
     parts.done("eager and graph times")
     return dict(batched_launches=batched_launches,
                 launches_4096=launches_4096, many=many, memory_b24=memory,
+                host_loads=loads,
                 e2e_cli_launches=e2e_launches, table=table, dp=dp_checked)
 
 
@@ -3902,8 +4113,62 @@ def _train_decode(files):
     if not same:
         raise AssertionError("train files: the threaded decode differs from "
                              "the serial decode")
+    png = _train_decode_png(pairs, os.path.join(
+        os.path.dirname(files["rgb"]), "rgb_png"))
     return dict(ms_1_thread=ms[1], ms_pool=ms[n], threads=n, cpus=cpus,
-                turns={str(k): v for k, v in turns.items()})
+                turns={str(k): v for k, v in turns.items()}, png=png)
+
+
+def _train_decode_png(pairs, root):
+    """The batch's pairs with each RGB rewritten into ``root`` as an 8-bit
+    RGB PNG with Paeth and Average rows: a chunk of PNGs only, which
+    ``_load_pair_chunk`` decodes through one native ``BatchPrefetcher``
+    (counted here); its arrays bit-equal to ``io.load_image01`` file by
+    file, the RGB also to the JPEG's."""
+    from panodepth_torch import io as pio
+    from panodepth_torch.models import data as pdata
+    from panodepth_torch.utils import nativeio
+
+    os.makedirs(root, exist_ok=True)
+    png_pairs = [(os.path.join(root, os.path.splitext(os.path.basename(r))[0]
+                               + ".png"), g) for r, g in pairs]
+    _threaded([lambda r=r, p=p: write_png_filtered(p, pio.read_image(r),
+                                                   PAETH_AVERAGE)
+               for (r, _), (p, _) in zip(pairs, png_pairs)])
+    made = nativeio.BatchPrefetcher
+    opened = []
+
+    class Counted(made):
+        def __init__(self, *a, **k):
+            opened.append(len(a[0]))
+            super().__init__(*a, **k)
+
+    nativeio.BatchPrefetcher = Counted
+    try:
+        t0 = time.perf_counter()
+        got = pdata._load_pair_chunk(png_pairs, pdata.DECODE_THREADS)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        nativeio.BatchPrefetcher = made
+    t0 = time.perf_counter()
+    want = [tuple(pio.load_image01(f) for f in pair) for pair in png_pairs]
+    ms_files = (time.perf_counter() - t0) * 1e3
+    same = all(np.array_equal(a, b) for ga, wa in zip(got, want)
+               for a, b in zip(ga, wa))
+    same_jpeg = all(np.array_equal(g[0], pio.load_image01(r))
+                    for g, (r, _) in zip(got, pairs))
+    route = (f"one prefetcher over {opened[0]} files" if opened == [
+        2 * len(pairs)] else f"prefetchers {opened}")
+    print(f"train files decode, all PNG: {len(pairs)} pairs (RGB as 8-bit "
+          f"PNG with Paeth/Average rows, 16-bit PNG gt) through "
+          f"_load_pair_chunk on {pdata.DECODE_THREADS} threads: {route}, "
+          f"{ms!r} ms; io.load_image01 file by file {ms_files!r} ms; "
+          f"bit-equal {same}, RGB bit-equal to the JPEG's {same_jpeg}")
+    if not (same and same_jpeg and opened == [2 * len(pairs)]):
+        raise AssertionError("train files: the all-PNG chunk did not go "
+                             "through one prefetcher bit-equal to "
+                             "load_image01")
+    return dict(ms=ms, ms_files=ms_files, files=opened[0])
 
 
 def _train_files(label, step, state, kind, size, files, has_teacher,
@@ -5066,6 +5331,7 @@ def main():
         phase_build()
     cfg_4096 = MergeConfig(layout_name="5fold_leres", out_width=4096)
     serve_tmp = tempfile.mkdtemp(prefix="panodepth_smoke_serve_")
+    cli_tmp = tempfile.mkdtemp(prefix="panodepth_smoke_cli_")
     trainers = Trainers()
     dp = None
     # SliceNet's export, the longest (90-135 s), runs from here on, the
@@ -5082,7 +5348,7 @@ def main():
             merged0, merge_launches, warm_ms, library = phase_merge(
                 cfg, scenes[0])
         with Phase("cli"):
-            analyzed = phase_cli(cfg, scenes, merged0)
+            analyzed, paeth_files = phase_cli(cfg, scenes, merged0, cli_tmp)
         with Phase("groupnorm"):
             persp, _ = load_model_checkpoint(PERSP_CKPT)
             base, _ = load_model_checkpoint(BASE_CKPT)
@@ -5110,7 +5376,7 @@ def main():
             stage_a = phase_stage_a(cfg, scenes, rgbs)
         with Phase("graphs"):
             graphs = phase_graphs(cfg, cfg_4096, scenes, persp, base, rgbs,
-                                  e2e, dp, smi)
+                                  e2e, dp, smi, paeth_files)
         with Phase("batched"):
             batched = phase_batched(cfg, cfg_4096)
         with Phase("families"):
@@ -5129,6 +5395,7 @@ def main():
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(serve_tmp, ignore_errors=True)
+        shutil.rmtree(cli_tmp, ignore_errors=True)
         trainers.close()
         if dp is not None:
             dp.close()

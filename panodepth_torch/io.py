@@ -13,12 +13,16 @@ Pillow anywhere:
   (Depth.cpp:357-549), and PFM save;
 * the dataset filename conventions of the batch loop (Main.cpp:496-587).
 
-The PNG codec is written here with the standard library's ``zlib`` and
-numpy: it reads non-interlaced 8- and 16-bit images of every colour type
-but palette (grayscale, gray+alpha, RGB, RGBA), with all five row filters,
-and writes 8-bit gray or RGB and 16-bit gray with the Up filter.  JPEG goes
-through ``panodepth_torch.jpeg`` (host C++ built at first use), which gives
-the pixels Pillow gives.  The BMP reader takes uncompressed 8-bit gray
+PNGs are read and written by the port's native codec
+(``utils/nativeio.py`` over ``csrc/pngio.cpp``, host C++ built at first
+use): it reads non-interlaced 8- and 16-bit images of every colour type but
+palette (grayscale, gray+alpha, RGB, RGBA), with all five row filters, and
+writes 8-bit gray or RGB and 16-bit gray with the Up filter.  The same
+codec written with the standard library's ``zlib`` and numpy stays here as
+its plain twin (``read_png_py``, ``png_bytes_py``), which the tests hold
+the native one to and no path of the port calls.  JPEG goes through
+``panodepth_torch.jpeg`` (host C++ built at first use), which gives the
+pixels Pillow gives.  The BMP reader takes uncompressed 8-bit gray
 (a palette of grays) and 24/32-bit BGR[A], bottom-up and top-down.  Files
 are told apart by their first bytes, as Pillow does; ``.pfm`` by its name,
 as the JAX package does.
@@ -34,6 +38,7 @@ from typing import List, Optional
 import numpy as np
 
 from . import jpeg
+from .utils import nativeio
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples per pixel
@@ -126,7 +131,14 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
 
 def read_png(filename: str, data: Optional[bytes] = None) -> np.ndarray:
     """Decode a PNG (the file, or its bytes ``data``) to uint8 or uint16,
-    shape (H, W) or (H, W, C)."""
+    shape (H, W) or (H, W, C), with the native codec; errors name
+    ``filename``."""
+    return nativeio.decode_png(filename if data is None else data, filename)
+
+
+def read_png_py(filename: str, data: Optional[bytes] = None) -> np.ndarray:
+    """:func:`read_png` in Python (zlib and numpy): the native decoder's
+    plain twin."""
     if data is None:
         with open(filename, "rb") as fp:
             data = fp.read()
@@ -167,9 +179,16 @@ def _png_chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def png_bytes(arr: np.ndarray, level: int) -> bytes:
-    """A uint8 or uint16 gray (H, W) or RGB (H, W, 3) PNG, encoded.  Rows
-    carry the Up filter (the first row's prior is zero, so it equals None
-    there); ``level`` is the deflate level, always lossless."""
+    """A uint8 or uint16 gray (H, W) or RGB (H, W, 3) PNG, encoded by the
+    native codec.  Rows carry the Up filter (the first row's prior is zero,
+    so it equals None there); ``level`` is the deflate level, always
+    lossless."""
+    return nativeio.encode_png(arr, level)
+
+
+def png_bytes_py(arr: np.ndarray, level: int) -> bytes:
+    """:func:`png_bytes` in Python (zlib and numpy): the native encoder's
+    plain twin, the same bytes where both run one zlib."""
     h, w = arr.shape[:2]
     channels = 1 if arr.ndim == 2 else arr.shape[2]
     depth = 16 if arr.dtype == np.uint16 else 8
@@ -188,10 +207,8 @@ def png_bytes(arr: np.ndarray, level: int) -> bytes:
 
 
 def _write_png(filename: str, arr: np.ndarray, level: int) -> None:
-    """:func:`png_bytes` written to ``filename``."""
-    data = png_bytes(arr, level)
-    with open(filename, "wb") as fp:
-        fp.write(data)
+    """:func:`png_bytes` written to ``filename`` (by the native codec)."""
+    nativeio.write_png(filename, arr, level)
 
 
 def png_level() -> int:
@@ -204,12 +221,8 @@ def save_png16(filename: str, data: np.ndarray, level: int = None) -> None:
     """16-bit single-channel PNG (Save16BitPNG, Depth.cpp:27-32);
     ``level`` is the deflate level (always lossless), :func:`png_level`
     when None."""
-    if level is None:
-        level = png_level()
-    arr = np.ascontiguousarray(data, np.uint16)
-    if arr.ndim != 2:
-        raise ValueError(f"save_png16 takes a 2-D array, got {arr.shape}")
-    _write_png(filename, arr, level)
+    nativeio.write_png16(filename, data,
+                         png_level() if level is None else level)
 
 
 def _to_u8(img01: np.ndarray) -> np.ndarray:

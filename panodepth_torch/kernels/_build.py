@@ -5,14 +5,17 @@ exposes a plain ``extern "C"`` interface, so it is
 compiled by ``nvcc`` alone into a shared library (seconds) instead of
 through ``torch.utils.cpp_extension`` (whose sources include PyTorch's
 headers and take minutes) and loaded with :class:`ctypes.CDLL`.  Host
-sources, ``csrc/<name>.cpp`` (the JPEG codec), take the same route through
-``g++``, so they build wherever the port runs, the CPU included.
+sources, ``csrc/<name>.cpp`` (the JPEG codec, the PNG codec and prefetcher),
+take the same route through ``g++``, so they build wherever the port runs,
+the CPU included; a source's link flags (:data:`LINK_FLAGS`) follow it on
+the command line.
 
 The build runs at first use, never at import.  Libraries go to
 ``panodepth_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  A build writes ``*.<pid>.tmp`` and renames it into
-place, so concurrent processes that build the same source are safe.
+the source and its compile and link flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  A build writes ``*.<pid>.tmp``
+and renames it into place, so concurrent processes that build the same
+source are safe.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("jacobi", "groupnorm", "qconv",  # CUDA sources, csrc/<name>.cu
            "quantize")
-HOST_SOURCES = ("jpeg",)           # host C++ sources, csrc/<name>.cpp
+HOST_SOURCES = ("jpeg", "pngio")  # host C++ sources, csrc/<name>.cpp
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no FMA contraction: the kernels round like the plain PyTorch versions
@@ -40,6 +43,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+# after the source: the prefetcher's threads, and zlib's runtime library by
+# its soname (no development symlink needed)
+LINK_FLAGS = {"pngio": ("-pthread", "-l:libz.so.1")}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -63,7 +69,7 @@ def gxx_path() -> str:
         if cand and shutil.which(cand):
             return shutil.which(cand)
     raise RuntimeError("g++ not found (set CXX or put g++ on PATH); the "
-                       "JPEG codec is built from csrc/jpeg.cpp at first use")
+                       "host codecs are built from csrc/*.cpp at first use")
 
 
 def source_path(name: str) -> Path:
@@ -77,11 +83,12 @@ def _flags(name: str):
 
 def library_path(name: str) -> Path:
     """The library built from the current source, its headers
-    (``csrc/*.cuh``, for a CUDA source) and the flags."""
+    (``csrc/*.cuh``, for a CUDA source) and the compile and link flags."""
     src = source_path(name).read_bytes()
     if name not in HOST_SOURCES:
         src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
+    flags = (*_flags(name), *LINK_FLAGS.get(name, ()))
+    digest = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -101,7 +108,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [compilers[name], *_flags(name), "-o", str(tmp),
-               str(source_path(name))]
+               str(source_path(name)), *LINK_FLAGS.get(name, ())]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -122,8 +129,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas's registers, shared memory and spills per
-    kernel) from the build of the current ``csrc/<name>.cu``."""
+    """The compiler's output from the build of the current source (for a
+    ``csrc/<name>.cu``, ptxas's registers, shared memory and spills per
+    kernel)."""
     path = library_path(name).with_suffix(".log")
     return path.read_text() if path.is_file() else ""
 

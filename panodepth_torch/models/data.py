@@ -15,12 +15,13 @@ and two batch shapes are made:
 The random streams are JAX's: ``RandomState(seed)`` draws the epoch
 shuffles and the windows on the caller's thread, ``RandomState(seed +
 0x5EED)`` the augmentation inside the lookahead thread, in the same order,
-so the same files and seeds give the same batches.  A batch's pairs are
-decoded on up to :data:`DECODE_THREADS` threads with the port's codecs
-(``io.load_image01``; the JPEG codec's ``ctypes`` call, zlib and numpy's
-loops release the GIL), the counterpart of JAX's
-``BatchPrefetcher(files, threads=8)``, and each sample's resize or view
-gather and augmentation run on the same threads.  The batches stay
+so the same files and seeds give the same batches.  A batch's files are
+decoded as JAX decodes them: where every file is a PNG, by one native
+``BatchPrefetcher(files, threads=DECODE_THREADS)`` (``utils/nativeio.py``,
+outside the GIL), else by the port's codecs (``io.load_image01``; their
+``ctypes`` calls release the GIL) on up to :data:`DECODE_THREADS` threads.
+Each sample's resize or view gather and augmentation run on those
+threads.  The batches stay
 numpy: the training loop copies them to the device.
 """
 
@@ -35,6 +36,7 @@ import numpy as np
 
 from .. import geometry
 from .. import io as pio
+from ..utils import nativeio
 
 DECODE_THREADS = 8
 
@@ -59,21 +61,35 @@ def _resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
 
 def _load_pair_chunk(chunk: List[Tuple[str, str]],
                      threads: int = DECODE_THREADS, prepare=None) -> list:
-    """Decode a chunk of (rgb, gt) pairs on up to ``threads`` threads (1:
-    one after another on the caller's thread), a pair per task; with
+    """Decode a chunk of (rgb, gt) pairs, a pair per task on up to
+    ``threads`` threads (1: one after another on the caller's thread); with
     ``prepare``, each task returns ``prepare(i, rgb, gt)`` of its pair i
     instead of the arrays (the per-sample work of a batch, on the same
-    threads).  The results are those of a serial run, in the chunk's
-    order; a file that fails raises, naming it."""
+    threads).  Where every file is a PNG, the tasks take their files from
+    one native ``BatchPrefetcher`` decoding the chunk on ``threads``
+    threads.  The results are those of a serial run, in the chunk's order;
+    a file that fails raises, naming it."""
+    files = [f for pair in chunk for f in pair]
+    pf = None
+    if all(f.lower().endswith(".png") for f in files):
+        pf = nativeio.BatchPrefetcher(files, threads=threads)
+
     def load(i):
-        rgb, gt = (pio.load_image01(f) for f in chunk[i])
+        if pf is None:
+            rgb, gt = (pio.load_image01(f) for f in chunk[i])
+        else:
+            rgb, gt = (pio._to01(pf.get(2 * i + k)) for k in (0, 1))
         return (rgb, gt) if prepare is None else prepare(i, rgb, gt)
 
     n = min(threads, len(chunk))
-    if n <= 1:
-        return [load(i) for i in range(len(chunk))]
-    with ThreadPoolExecutor(n) as pool:
-        return list(pool.map(load, range(len(chunk))))
+    try:
+        if n <= 1:
+            return [load(i) for i in range(len(chunk))]
+        with ThreadPoolExecutor(n) as pool:
+            return list(pool.map(load, range(len(chunk))))
+    finally:
+        if pf is not None:
+            pf.close()
 
 
 def _prefetched(items, fn):

@@ -23,7 +23,8 @@ Protocol (standard library only):
 
     GET  /healthz   -> {"status": "ok", ...}          liveness + artifact kind
     GET  /describe  -> the artifact's meta sidecar as JSON
-    GET  /stats     -> request/batch counters, batch fill, latency quantiles
+    GET  /stats     -> request/batch counters, batch fill, latency quantiles,
+                       where the time went (below)
     POST /infer     body = ``.npz`` with arrays ``in0..inN`` (ONE item each,
                     no batch dim) -> ``.npz`` with arrays ``out0..outN``
     POST /infer     body = JPEG/PNG/BMP bytes (``Content-Type: image/*``),
@@ -35,6 +36,24 @@ they refuse (a progressive or arithmetic-coded JPEG, CMYK, 16-bit) is a
 400 with the codec's message.  Responses are written by ``io.png_bytes``
 at ``io.png_level()``, the level the result files get
 (``PANODEPTH_PNG_LEVEL``, default 1).
+
+``/stats`` counts since start: ``requests``, ``batches``, ``items``
+(served), ``padded`` (rows padded), ``errors``, ``timeouts``,
+``rejected``, ``bad_requests``; seconds summed by the runner:
+``wait_s`` (over items, from the enqueue to the start of its batch's
+stack), ``stack_s``, ``call_s`` (the artifact's call), ``copy_out_s``
+and ``fanout_s`` (over batches).  It adds ``mean_batch_fill``,
+``queue_wait_ms_mean`` (per item), ``stack_ms_mean`` and ``call_ms_mean``
+(per batch), and ``latency_ms_p50`` / ``latency_ms_p99`` of the last
+requests, from ``submit`` to its return.
+
+While a profiler records the runner names its steps as spans:
+``panodepth.batcher.wait`` (blocked on an empty queue), ``.gather`` (the
+first item until the batch closes), ``.stack``, ``.call`` (``[batch N:
+requests i,j,...]``), ``.copy_out``, ``.fanout``.  ``debug.Trace``
+follows the runner's thread and writes them; a profiler that follows
+only its own thread records none, but their times still add up in
+``debug.span_totals()``.  Client threads record none.
 
 Run:  ``python -m panodepth_torch.serve daemon ART.pt2 --port 8765``
 """
@@ -50,6 +69,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from . import debug
 from . import io as pio
 
 
@@ -58,10 +78,13 @@ class Overloaded(RuntimeError):
 
 
 class _Pending:
-    __slots__ = ("arrays", "event", "result", "error", "abandoned")
+    __slots__ = ("arrays", "event", "result", "error", "abandoned", "seq",
+                 "enqueued")
 
     def __init__(self, arrays):
         self.arrays = arrays
+        self.seq = 0  # the request's number, from 1
+        self.enqueued = 0.0  # time.monotonic() when queued
         self.event = threading.Event()
         self.result = None
         self.error = None
@@ -85,7 +108,9 @@ class Batcher:
         self._stop = threading.Event()
         self._lock = threading.Lock()
         self.stats = dict(requests=0, batches=0, items=0, errors=0,
-                          timeouts=0, rejected=0, bad_requests=0)
+                          timeouts=0, rejected=0, bad_requests=0, padded=0,
+                          wait_s=0.0, stack_s=0.0, call_s=0.0,
+                          copy_out_s=0.0, fanout_s=0.0)
         self._latencies: list = []  # seconds, per item, capped window
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="panodepth-batch-runner")
@@ -115,6 +140,8 @@ class Batcher:
         t0 = time.monotonic()
         with self._lock:
             self.stats["requests"] += 1
+            p.seq = self.stats["requests"]
+        p.enqueued = time.monotonic()
         try:
             self._q.put_nowait(p)
         except queue.Full:
@@ -139,45 +166,67 @@ class Batcher:
 
     # -- device side -----------------------------------------------------
     def _run(self):
+        batch_no = 0
         while not self._stop.is_set():
-            try:
-                first = self._q.get(timeout=0.2)
-            except queue.Empty:
-                continue
-            items = [first]
-            deadline = time.monotonic() + self.max_delay
-            while len(items) < self.batch:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    break
+            with debug.span("batcher.wait"):
                 try:
-                    items.append(self._q.get(timeout=left))
+                    first = self._q.get(timeout=0.2)
                 except queue.Empty:
-                    break
+                    continue
+            with debug.span("batcher.gather"):
+                items = [first]
+                deadline = time.monotonic() + self.max_delay
+                while len(items) < self.batch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    try:
+                        items.append(self._q.get(timeout=left))
+                    except queue.Empty:
+                        break
             # drop items whose caller already timed out (an abandonment
             # after this point only wastes that item's row, never a batch)
             items = [it for it in items if not it.abandoned]
             if not items:
                 continue
+            batch_no += 1
             try:
                 pad = self.batch - len(items)
-                stacked = [
-                    np.stack([it.arrays[k] for it in items]
-                             + [items[0].arrays[k]] * pad)
-                    for k in range(len(self.item_shapes))
-                ]
-                outs = self.artifact(*stacked)
-                if not isinstance(outs, (tuple, list)):
-                    outs = (outs,)
-                # the copies back wait for the device
-                outs = [np.asarray(o.cpu()) if hasattr(o, "cpu")
-                        else np.asarray(o) for o in outs]
-                for i, it in enumerate(items):
-                    it.result = tuple(o[i] for o in outs)
-                    it.event.set()
+                t_stack = time.monotonic()
+                with debug.span("batcher.stack"):
+                    stacked = [
+                        np.stack([it.arrays[k] for it in items]
+                                 + [items[0].arrays[k]] * pad)
+                        for k in range(len(self.item_shapes))
+                    ]
+                t_call = time.monotonic()
+                with debug.span("batcher.call", f"batch {batch_no}: requests "
+                                f"{','.join(str(it.seq) for it in items)}"
+                                if debug.recording() else None):
+                    outs = self.artifact(*stacked)
+                t_copy = time.monotonic()
+                with debug.span("batcher.copy_out"):
+                    if not isinstance(outs, (tuple, list)):
+                        outs = (outs,)
+                    # the copies back wait for the device
+                    outs = [np.asarray(o.cpu()) if hasattr(o, "cpu")
+                            else np.asarray(o) for o in outs]
+                t_fan = time.monotonic()
+                with debug.span("batcher.fanout"):
+                    for i, it in enumerate(items):
+                        it.result = tuple(o[i] for o in outs)
+                        it.event.set()
+                t_end = time.monotonic()
                 with self._lock:
-                    self.stats["batches"] += 1
-                    self.stats["items"] += len(items)
+                    st = self.stats
+                    st["batches"] += 1
+                    st["items"] += len(items)
+                    st["padded"] += pad
+                    st["wait_s"] += sum(t_stack - it.enqueued for it in items)
+                    st["stack_s"] += t_call - t_stack
+                    st["call_s"] += t_copy - t_call
+                    st["copy_out_s"] += t_fan - t_copy
+                    st["fanout_s"] += t_end - t_fan
             except Exception as e:  # noqa: BLE001 — fan the error out
                 # one server-side line per failed batch: operators must
                 # see device failures even though per-request HTTP
@@ -204,6 +253,11 @@ class Batcher:
             lat = sorted(self._latencies)
         s["mean_batch_fill"] = (s["items"] / s["batches"]
                                 if s["batches"] else 0.0)
+        s["queue_wait_ms_mean"] = (1e3 * s["wait_s"] / s["items"]
+                                   if s["items"] else 0.0)
+        for key in ("stack", "call"):
+            s[f"{key}_ms_mean"] = (1e3 * s[f"{key}_s"] / s["batches"]
+                                   if s["batches"] else 0.0)
         if lat:
             s["latency_ms_p50"] = round(lat[len(lat) // 2] * 1000, 2)
             s["latency_ms_p99"] = round(lat[(len(lat) * 99) // 100

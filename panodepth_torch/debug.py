@@ -12,16 +12,27 @@ step) and the work it belongs to (the panorama or the step, set by
 replayed graph cannot be checked stage by stage.  Off (the default),
 :func:`check` returns at once and nothing is synchronised; on, the
 outputs are those of the run without it, bit for bit.
+
+:func:`span` names a stretch of host work on a profiler's timeline
+(``panodepth.<layer>.<step>``): the micro-batcher's runner
+(``daemon.Batcher``) and every ``graphs.Graphed`` call record theirs, so a
+trace says what the host did while the card waited.  A span is recorded
+only while a profiler records (a :class:`Trace`, the benchmark's), on
+every thread that :class:`Trace` follows, and its host time is summed by
+name (:func:`span_totals`) on every thread; otherwise it costs one test
+of a flag.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import List
 
 import torch
+from torch.autograd import profiler as _profiler
 
 _NANS = False
 _WHERE: List[str] = []
@@ -76,18 +87,84 @@ def check(stage: str, tensors) -> None:
                 f"--debug-nans: NaN in the {stage}{what}{at}")
 
 
+_NO_SPAN = contextlib.nullcontext()
+# name -> [spans closed, nanoseconds], of the spans run while a profiler
+# recorded
+_TOTALS: dict = {}
+_TOTALS_LOCK = threading.Lock()
+
+
+def recording() -> bool:
+    """True while a profiler records, on any thread.  (The profiler's own
+    test, ``torch._C._autograd._profiler_enabled()``, is per thread: it
+    reads False on a worker thread while the profiler records there.)"""
+    return _profiler._is_profiler_enabled
+
+
+class _Span:
+    """A ``record_function`` range that adds its host time to
+    :func:`span_totals` when it closes."""
+
+    __slots__ = ("key", "_range", "_t0")
+
+    def __init__(self, key: str, label: str):
+        self.key, self._range = key, _profiler.record_function(label)
+
+    def __enter__(self):
+        self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self._t0
+        self._range.__exit__(*exc)
+        with _TOTALS_LOCK:
+            row = _TOTALS.setdefault(self.key, [0, 0])
+            row[0] += 1
+            row[1] += ns
+        return False
+
+
+def span(name: str, args: str = None):
+    """A ``record_function`` range ``panodepth.<name>`` while a profiler
+    records, else one shared null context.  ``args`` (the work's identity:
+    a batch's request numbers, a graph's name) follows the name after a
+    space, in brackets: PyTorch's profiler records a range's string
+    argument as an empty input, so the name carries it; a reader keys the
+    range by the part before the space.  Build ``args`` only when
+    :func:`recording`.  The range's time also goes to
+    :func:`span_totals`, from any thread, whether or not the profiler
+    follows that thread."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    name = "panodepth." + name
+    return _Span(name, f"{name} [{args}]" if args else name)
+
+
+def span_totals() -> dict:
+    """``{"panodepth.<name>": {"n": spans, "s": seconds}}`` of every span
+    closed while a profiler recorded, since the process started: what the
+    host spent in each, on every thread."""
+    with _TOTALS_LOCK:
+        return {k: {"n": n, "s": ns / 1e9} for k, (n, ns) in _TOTALS.items()}
+
+
 class Trace:
     """A ``torch.profiler`` trace (host, and the card's kernels when
     ``cuda``) between :meth:`start` and :meth:`stop`, written into
     ``directory`` as a Chrome trace ``<name>.<time>.<pid>.pt.trace.json``
-    (chrome://tracing, Perfetto, TensorBoard)."""
+    (chrome://tracing, Perfetto, TensorBoard).  Every thread is recorded:
+    the decode and writer pools, the batcher's runner and their
+    :func:`span` ranges appear beside the main thread's."""
 
     def __init__(self, directory: str, name: str, cuda: bool):
         acts = [torch.profiler.ProfilerActivity.CPU]
         if cuda:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         self.directory, self.name = directory, name
-        self._prof = torch.profiler.profile(activities=acts)
+        self._prof = torch.profiler.profile(
+            activities=acts, experimental_config=torch.profiler
+            ._ExperimentalConfig(profile_all_threads=True))
         self.running = False
 
     def start(self) -> None:

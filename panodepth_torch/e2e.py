@@ -474,10 +474,10 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
         if base_model is None:
             args.append(_to_device_async(
                 np.stack([c[3] for c in chunk + pad]), dev))
-        t0 = time.monotonic()
         times = None
         with debug.where("panoramas " + ", ".join(c[1] for c in chunk)):
             if profile:
+                t0 = time.monotonic()
                 baselines, pmaps = models_stage(*args)
                 _host_sync(pmaps[0][:1, :1, :1])
                 t1 = time.monotonic()
@@ -489,18 +489,17 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
                 out_u16, baselines = full(*args)
         # the copies back wait for this batch only, not for the next one
         host, done = _to_host_async((out_u16[:n], baselines[:n]), dev)
-        return chunk, host, done, t0, times
+        return chunk, host, done, times
 
     def collect(pending):
-        chunk, (out_u16, bases), done, t0, times = pending
+        chunk, (out_u16, bases), done, times = pending
         if done is not None:
             done.synchronize()
         out_np = out_u16.numpy()
-        models_ms, fuse_ms = times or (
-            None, (time.monotonic() - t0) * 1000 / len(chunk))
-        if models_ms is not None:
+        if times is not None:
+            models_ms, fuse_ms = times
             models_times.extend([models_ms] * len(chunk))
-        fuse_times.extend([fuse_ms] * len(chunk))
+            fuse_times.extend([fuse_ms] * len(chunk))
         for j, (i, raw, _, _, gt) in enumerate(chunk):
             writes.append(pool.submit(
                 pio.save_png16, os.path.join(result_folder, raw + ".png"),
@@ -539,12 +538,12 @@ def run_batch_e2e(rgb_folder: str, gt_folder: str, result_folder: str,
             job.result()
     finally:
         pool.shutdown(wait=True)
-    if fuse_times:
+    if todo:
         split = (f"time_Models_avg:{np.mean(models_times):.1f} "
-                 if models_times else
-                 "time_Models_avg:n/a (fused graph; use --profile) ")
-        log(f"[run_batch_e2e] done: {len(fuse_times)} panoramas, " + split
-            + f"time_Fuse_avg:{np.mean(fuse_times):.1f}")
+                 f"time_Fuse_avg:{np.mean(fuse_times):.1f}" if profile else
+                 "time_Models_avg:n/a (fused graph; use --profile) "
+                 "time_Fuse_avg:n/a (fused graph; use --profile)")
+        log(f"[run_batch_e2e] done: {len(todo)} panoramas, " + split)
     return all_metrics
 
 

@@ -35,6 +35,11 @@ between; every shape is static per configuration, as under ``jax.jit``.
   variables named in ``env`` join the key: a stage that reads one when
   it runs (``PANODEPTH_BASE_FEED``, ``PANODEPTH_P99``, as JAX reads them
   when it traces) is captured anew for another value.
+- **Spans.** Each call records ``panodepth.graphs.call`` (its ``name``
+  in brackets) while a profiler records (``debug.span``); on the card
+  its children ``graphs.key`` (the signature and the weights key),
+  ``graphs.capture`` (a miss only), ``graphs.copy_in``, ``graphs.replay``
+  and ``graphs.clone`` split its host time.
 - **CPU, NaN checks and failures.** On the CPU the function runs eagerly:
   the CPU has no graph; so it does under ``--debug-nans``
   (``debug.nans_on()``), whose checks a replay would skip.  On the card a
@@ -192,29 +197,38 @@ class Graphed:
                      for p in self._weights())
 
     def __call__(self, *args):
+        with debug.span("graphs.call", self.name):
+            return self._call(args)
+
+    def _call(self, args):
         leaves = []
         spec = _flatten(args, leaves)
         if self.device.type != "cuda" or debug.nans_on():
             return self.eager(*_unflatten(spec, iter(
                 [torch.as_tensor(t, device=self.device) for t in leaves])))
-        leaves = [torch.from_numpy(np.ascontiguousarray(t))
-                  if isinstance(t, np.ndarray) else t for t in leaves]
-        key = (spec, tuple((tuple(t.shape), t.dtype) for t in leaves),
-               self._weights_key(),
-               tuple(os.environ.get(name) for name in self.env))
-        entry = self._cache.get(key)
+        with debug.span("graphs.key"):
+            leaves = [torch.from_numpy(np.ascontiguousarray(t))
+                      if isinstance(t, np.ndarray) else t for t in leaves]
+            key = (spec, tuple((tuple(t.shape), t.dtype) for t in leaves),
+                   self._weights_key(),
+                   tuple(os.environ.get(name) for name in self.env))
+            entry = self._cache.get(key)
         if entry is None:
-            entry = self._capture(spec, leaves)
+            with debug.span("graphs.capture"):
+                entry = self._capture(spec, leaves)
             self._cache[key] = entry
             while len(self._cache) > MAX_SIGNATURES:
                 self._cache.popitem(last=False)
         else:
             self._cache.move_to_end(key)
-        for dst, src in zip(entry.inputs, leaves):
-            dst.copy_(src, non_blocking=True)
-        entry.graph.replay()
-        return _unflatten(entry.out_spec,
-                          iter([t.clone() for t in entry.outputs]))
+        with debug.span("graphs.copy_in"):
+            for dst, src in zip(entry.inputs, leaves):
+                dst.copy_(src, non_blocking=True)
+        with debug.span("graphs.replay"):
+            entry.graph.replay()
+        with debug.span("graphs.clone"):
+            outs = [t.clone() for t in entry.outputs]
+        return _unflatten(entry.out_spec, iter(outs))
 
     def _capture(self, spec, leaves) -> _Entry:
         inputs = [torch.empty(t.shape, dtype=t.dtype, device=self.device)

@@ -144,7 +144,9 @@ def test_stats_counts_and_fill(daemon_art):
     assert s["latency_ms_p50"] > 0
     assert set(s) == {"requests", "batches", "items", "errors", "timeouts",
                       "rejected", "bad_requests", "mean_batch_fill",
-                      "latency_ms_p50", "latency_ms_p99"}
+                      "latency_ms_p50", "latency_ms_p99", "padded", "wait_s",
+                      "stack_s", "call_s", "copy_out_s", "fanout_s",
+                      "queue_wait_ms_mean", "stack_ms_mean", "call_ms_mean"}
 
 
 def test_bad_shape_is_400_not_crash(daemon_art):
